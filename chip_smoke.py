@@ -7,32 +7,50 @@ Phases (each prints a start line):
   env      torch / CUDA versions and the card's name and power limit;
   build    compile the CUDA kernels (one nvcc call, first use builds
            lidar4d_tpu_torch/_build/);
-  kernels  hold every kernel against its plain PyTorch version on the card at
-           every flagship shape, at the point counts of the render's density
-           calls (one 16,384-ray chunk: 128 coarse and 256 fine samples per
-           ray) and on 65,536 points, and time both;
+  kernels  hold every forward kernel against its plain PyTorch version on
+           the card at every flagship shape, at the point counts of the
+           render's density calls (one 16,384-ray chunk: 128 coarse and 256
+           fine samples per ray) and on 65,536 points, and time both;
   slice    build the flagship field (configs/kitti360_4950_tpu.txt) with the
            port's seeded init; check a 256-ray render with O(0.1-1) tables
            against the plain versions on the CPU, with bfloat16 and with
            float32 MLPs, and show that a one-row / one-pixel read fault in any
            kernel would move it well past the tolerance; then render 2 novel
            frames at 66x1030 through Simulator.render with the U-Net refine,
-           counting kernel launches, and profile one frame.
+           counting kernel launches, and profile one frame;
+  scene    write the synthetic 66x1030x51 scene (seed 0) to a temporary
+           directory and build the flow-loss cache (at most 65,536 points a
+           frame) for the frames the train steps touch and their +-2
+           neighbours;
+  train-kernels  hold every forward and backward kernel against its plain
+           version at the train step's per-call sizes (131,072 and 262,144
+           points along the step's 1,024 training rays, the flow loss's
+           cloud and ground points), and time kernel, plain version and the
+           PyTorch call with the same function;
+  train    one flagship train step on the card against the same step on the
+           CPU (O(0.1-1) tables, float32 MLPs, fewer rays): loss, every
+           gradient leaf, post-step parameters; then 2 warm-up and 5 timed
+           flagship steps (1,024 rays, 128 + 256 samples, flow loss) with
+           their losses, ms/step, train rays/s, peak memory and kernel
+           launches per step; and one step under torch.profiler.
 
 The line before the last is a JSON object with each kernel's numbers, taken
-at the render's point counts: ms, plain_ms, library_ms and bound_ms are sums
-over the shapes that the density calls of one full ray chunk launch. The last
-line is {"ok": true, "device": {...}}. Any failure exits non-zero before
-either is printed. Imports nothing of JAX.
+at the train step's per-call sizes: ms, plain_ms, library_ms and bound_ms are
+sums over the calls of one flagship train step, and launches the count over
+the 7 train steps. The last line is {"ok": true, "device": {...}}. Any
+failure exits non-zero before either is printed. Imports nothing of JAX.
 """
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import inspect
 import json
+import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +63,7 @@ SIGNAL_SEED = 1
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 KERNEL_RTOL = 1e-6             # same gathers, same order: only FMA rounding differs
+GRAD_RTOL = 1e-4               # atomics add in another order than the plain scatter
 # small render, card vs CPU, by MLP precision: about 10x the gaps measured
 # on the H100 (PERF.md). With bfloat16 MLPs the two devices round differently;
 # with float32 MLPs only the order of float32 sums differs.
@@ -55,6 +74,25 @@ SLICE_ATOL = {
 FAULT_MARGIN = 10              # a one-row / one-pixel read fault must move a
                                # float32 render by this many times its tolerance
 SMALL_RAYS = 256
+# train phase: the bench's synthetic scene and flagship step (bench.py)
+SCENE = dict(sequence_id="9000", num_frames=51, H=66, W=1030, seed=0)
+FOV = (2.0, 26.9)
+TRAIN_RAYS = 1024
+LR, ITERS = 1e-2, 30000
+FLOW_MAX_POINTS = 65536
+STEP_FRAMES = 3                # the steps cycle over the first 3 train frames
+WARMUP, TIMED = 2, 5
+CHECK_RAYS = 256               # card vs CPU step
+# card vs CPU step, float32 MLPs, O(0.1-1) tables: relative tolerance of the
+# loss and of each gradient leaf by top-level group, about 10x the gaps
+# measured on an H100 (PERF.md): loss 4.4e-7; gradients flow 1.0e-3,
+# hash 1.7e-3, planes 2.6e-3, sigma 3.7e-4, intensity 3.6e-4, raydrop 8.6e-5.
+# The atomics and the card's float32 rounding move the coarse weights, so
+# the fine samples sit a little elsewhere on the two devices.
+STEP_RTOL = 5e-6
+STEP_GRAD_RTOL = {"flow": 1e-2, "hash": 2e-2, "planes": 3e-2, "sigma": 4e-3,
+                  "intensity": 4e-3, "raydrop": 1e-3}
+SIGN_FLOOR = 10                # post-step params compared where |g| > this x tol x max|g|
 
 
 def phase(name):
@@ -255,38 +293,164 @@ def check_kernels(field, params, rays_o, rays_d, opt, dev):
                 pts = -0.05 + 1.1 * torch.rand(n, 3, generator=gen, device=dev)
             print(f"  {n} points, " + ("one ray chunk's density call" if main
                                        else "uniform in [-0.05, 1.05]^3"), flush=True)
-            for name, label, run, plain, library, nb, flops in kernel_cases(
-                    field, params, gen, pts):
-                got, want = run(), plain()
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                del got, want
-                rel = err / max(scale, 1e-30)
-                ms = cuda_ms(run, 10 if main else 20)
-                plain_ms = cuda_ms(plain, 2 if main else 5)
-                lib_ms = cuda_ms(library, 10 if main else 20) if library is not None else None
-                b_ms, b_by = bound_ms(nb, flops)
-                print(f"  {name:18s} {label:55s} max_abs {err:.3e} max_rel {rel:.3e} "
-                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                      f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-                      f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-                if not rel <= KERNEL_RTOL:
-                    raise AssertionError(f"{name} {label} n={n}: max_rel {rel} > {KERNEL_RTOL}")
-                s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                                  bytes=0, flops=0, library_ms=None))
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                if main:
-                    s["ms"] += ms
-                    s["plain_ms"] += plain_ms
-                    s["bytes"] += nb
-                    s["flops"] += flops
-                    if lib_ms is not None:
-                        s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
+            for case in kernel_cases(field, params, gen, pts):
+                check_case(case, summary, main, 10 if main else 20, 2 if main else 5)
             torch.cuda.empty_cache()
+    return finish(summary)
+
+
+def finish(summary):
     for s in summary.values():
         s["bound_ms"], s["bound_by"] = bound_ms(s.pop("bytes"), s.pop("flops"))
     return summary
+
+
+def check_case(case, summary, main, iters, plain_iters):
+    """Hold one kernel case against its plain version (each output within
+    KERNEL_RTOL, GRAD_RTOL for a backward kernel, of the plain output's
+    largest magnitude), time kernel, plain version and library call, and add
+    the case to `summary` (times and bound only when `main`)."""
+    name, label, run, plain, library, nb, flops = case
+    rtol = GRAD_RTOL if name.endswith("_bwd") else KERNEL_RTOL
+    got, want = run(), plain()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    rel = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+              for g, w in zip(got, want))
+    del got, want
+    ms = cuda_ms(run, iters)
+    plain_ms = cuda_ms(plain, plain_iters)
+    lib_ms = cuda_ms(library, iters) if library is not None else None
+    b_ms, b_by = bound_ms(nb, flops)
+    print(f"  {name:18s} {label:55s} max_abs {err:.3e} max_rel {rel:.3e} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    if not rel <= rtol:
+        raise AssertionError(f"{name} {label}: max_rel {rel} > {rtol}")
+    s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                      bytes=0, flops=0, library_ms=None))
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if main:
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["bytes"] += nb
+        s["flops"] += flops
+        if lib_ms is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
+
+
+def backward_cases(field, params, gen, pts):
+    """(kernel, label, run, plain, library, bytes, flops) of every backward
+    kernel at every flagship shape, with the variant / plane counts of one
+    density call on pts [N, 3] of a train step and random cotangents."""
+    from lidar4d_tpu_torch.ops import hash_onehot as ho
+    from lidar4d_tpu_torch.ops import plane_onehot as po
+
+    dev = pts.device
+    n = pts.shape[0]
+    x01 = torch.clamp(pts, 0.0, 1.0)
+    pairs = ((0, 1), (0, 2), (1, 2))
+    cases = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def hash_case(label, spec, xs, n_tables):
+        xs = xs.contiguous()
+        cot = randn(xs.shape[0], n, spec.n_output_dims)
+        levels = ho._level_table(spec, dev)
+        out = torch.empty(n_tables, spec.n_rows, spec.n_features, device=dev)
+        flops = 2 * xs.shape[0] * n * spec.n_levels * (1 << spec.n_dims) * spec.n_features
+        cases.append(("hash_grid_bwd", label,
+                      lambda: ho.hash_grid_bwd(spec, xs, cot, n_tables),
+                      lambda: ho.hash_grid_bwd_plain(spec, xs, cot, n_tables), None,
+                      nbytes(xs, cot, levels, out), flops))
+
+    enc = field.hash_encoder
+    hash_case("static hash 3D L=6 F=8", enc.static_spec, x01[None], 1)
+    planes = field.planes_encoder
+    si = len(planes.multiscale_res) - 1
+    reso = planes._scale_reso(planes.multiscale_res[si])[0]
+    hash_case(f"hashed static plane {reso}^2 x3", planes._hash_spec(reso),
+              torch.stack([x01[:, list(c)] for c in pairs]), 3)
+    flow = field.flow_net
+    hash_case("flow grid 3D L=4 F'=2 (folded)", ho._folded_spec(flow.grid_spec, flow.num_basis),
+              x01[None], 1)
+    for p in range(3):
+        spec = enc.dynamic_spec(p)
+        hash_case(f"dynamic plane {p} 2D L=6 F'=2 rows {spec.table_sizes[0]} variant 0 of 3",
+                  ho._folded_spec(spec, enc.num_basis), x01[None, :, list(pairs[p])], 3)
+
+    aten_gs_bwd = torch.ops.aten.grid_sampler_2d_backward
+    for planes_s in params["planes"]:
+        group = [planes_s[ci] for ci in (0, 1, 3)]
+        if group[0].ndim != 3:
+            continue
+        grid = torch.stack(group).contiguous()
+        hw = tuple(grid.shape[2:])
+        q2 = torch.stack([pts[:, list(c)] for c in pairs]).contiguous()   # [P, N, 2]
+        cot = randn(3, grid.shape[1], n)
+        lib_cot = cot[:, :, None, :]                                      # [P, C, 1, N]
+        lib_grid = (2.0 * q2 - 1.0)[:, None]                              # [P, 1, N, 2]
+        cases.append((
+            "plane_bilinear_bwd", f"dense static planes {tuple(grid.shape)}",
+            lambda q=q2, c=cot, hw=hw: po.plane_bilinear_bwd(q, c, hw),
+            lambda q=q2, c=cot, hw=hw: po.plane_bilinear_bwd_plain(q, c, hw),
+            lambda g=grid, q=lib_grid, c=lib_cot: aten_gs_bwd(
+                c, g, q, 0, 1, True, [True, False]),
+            nbytes(q2, cot, grid), 2 * 4 * cot.numel()))
+
+    x = pts.T.repeat(3, 1).contiguous()                                   # [V * 3, N]
+    for planes_s in params["planes"]:
+        c, s = planes_s[2].shape[0], planes_s[2].shape[2]
+        grid = 0.1 + 0.9 * torch.rand(9, c, s, generator=gen, device=dev)
+        cot = randn(9, n, c)
+        lib_in = grid[:, :, None, :]                                      # [P, C, 1, S]
+        lib_grid = torch.stack([2.0 * x - 1.0, torch.zeros_like(x)], -1)[:, None]
+        lib_cot = cot.transpose(1, 2)[:, :, None, :].contiguous()         # [P, C, 1, N]
+        cases.append((
+            "plane_linear_bwd", f"dynamic planes [9, {c}, {s}] lead 3",
+            lambda g=grid, q=x, cc=cot: po.plane_linear_bwd(g, q, cc, 3),
+            lambda g=grid, q=x, cc=cot: po.plane_linear_bwd_plain(g, q, cc, 3),
+            lambda g=lib_in, q=lib_grid, cc=lib_cot: aten_gs_bwd(
+                cc, g, q, 0, 1, True, [True, True]),
+            nbytes(grid, x, cot, grid, x), 4 * cot.numel() + 3 * cot.numel() * 6 // 9))
+    return cases
+
+
+def flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward):
+    """The flow loss's two flow-net encodes (a frame's cloud and its ground
+    points, each [N, 3] in world units): forward or backward cases."""
+    from lidar4d_tpu_torch.ops import hash_onehot as ho
+    from lidar4d_tpu_torch.ops.hash_enc import lagrange_weights
+
+    flow = field.flow_net
+    spec = ho._folded_spec(flow.grid_spec, flow.num_basis)
+    w = torch.from_numpy(lagrange_weights(0.3, flow.num_basis)).to(flow_pts.device)
+    tables = ho._fold_table(params["flow"]["grid"], w, spec.n_features)[None].contiguous()
+    levels = ho._level_table(spec, flow_pts.device)
+    cases = []
+    for label, pts in (("flow loss cloud", flow_pts), ("flow loss ground", ground_pts)):
+        bound = field.cfg.bound
+        xs = torch.clamp((pts + bound) / (2 * bound), 0.0, 1.0)[None].contiguous()
+        n = xs.shape[1]
+        flops = 2 * n * spec.n_levels * 8 * spec.n_features
+        label = f"{label}: flow grid 3D L=4 F'=2 (folded)"
+        if backward:
+            cot = torch.randn(1, n, spec.n_output_dims, generator=gen, device=xs.device)
+            cases.append(("hash_grid_bwd", label,
+                          lambda xs=xs, c=cot: ho.hash_grid_bwd(spec, xs, c),
+                          lambda xs=xs, c=cot: ho.hash_grid_bwd_plain(spec, xs, c), None,
+                          nbytes(xs, cot, levels, tables), flops))
+        else:
+            out = torch.empty(1, n, spec.n_output_dims, device=xs.device)
+            cases.append(("hash_grid_fwd", label,
+                          lambda xs=xs: ho.hash_grid_fwd(spec, tables, xs),
+                          lambda xs=xs: ho.hash_grid_fwd_plain(spec, tables, xs), None,
+                          nbytes(tables, xs, levels, out), flops))
+    return cases
 
 
 @contextlib.contextmanager
@@ -336,6 +500,267 @@ def profile_render(sim, rays_o, rays_d, times):
           flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+
+
+def make_scene(root):
+    """The bench's synthetic scene under `root`, its train and refine
+    datasets, and the flow cache for the frames the steps touch and their
+    +-2 neighbours (every other frame valid = 0). Returns (train dataset,
+    cache, scale, seconds by part)."""
+    from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
+    from lidar4d_tpu_torch.data.synthetic import generate_synthetic_sequence
+    from lidar4d_tpu_torch.train.flow_cache import build_flow_cache
+
+    t0 = time.perf_counter()
+    scale, offset = generate_synthetic_sequence(root, **SCENE)
+    t_gen = time.perf_counter() - t0
+    kw = dict(root_path=root, sequence_id=SCENE["sequence_id"], scale=scale, offset=offset)
+    ds = KITTI360Dataset(split="train", num_rays_lidar=TRAIN_RAYS, **kw)
+    refine = KITTI360Dataset(split="refine", **kw)
+    n_frames = SCENE["num_frames"]
+    touched = {int(round(float(ds.times[i]) * (n_frames - 1))) for i in range(STEP_FRAMES)}
+    frames = {f + d for f in touched for d in range(-2, 3) if 0 <= f + d < n_frames}
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    cache = build_flow_cache(refine, scale, n_frames, max_points=FLOW_MAX_POINTS,
+                             seed=SEED, frames=frames)
+    t_cache = time.perf_counter() - t0
+    built = sorted(int(i) for i in np.flatnonzero(cache["valid"]))
+    print(f"  scene {SCENE}: scale {scale:.6g}, written in {t_gen:.1f} s; flow cache for "
+          f"frames {built} in {t_cache:.1f} s: points {cache['points'].shape}, "
+          f"ground {cache['ground'].shape}", flush=True)
+    return ds, cache, scale
+
+
+def train_field(field, scale):
+    """The render field's widths with the synthetic scene's near / far
+    (bench.py): near = 1 * scale, far = 81 * scale."""
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+
+    cfg = dataclasses.replace(field.cfg, near_lidar=1.0 * scale, far_lidar=81.0 * scale)
+    return LiDAR4DField(cfg, device=field.device)
+
+
+def check_train_kernels(field, params, ds, cache, opt, dev):
+    """Every forward and backward kernel against its plain version at the
+    train step's per-call sizes: the coarse and fine density calls
+    (TRAIN_RAYS rays of a train frame x num_coarse / num_fine samples) and
+    the flow loss's two flow-net calls. Returns the per-kernel summary,
+    sums over the calls of one train step."""
+    from lidar4d_tpu_torch.ops.rays import get_lidar_rays
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    frame = ds.frame(0)
+    rays = get_lidar_rays(torch.as_tensor(frame["pose"], device=dev), FOV, ds.H_lidar,
+                          ds.W_lidar, N=TRAIN_RAYS, generator=gen)
+    cfg = field.cfg
+    fi = int(round(float(frame["time"]) * (cfg.num_frames - 1)))
+    flow_pts = torch.as_tensor(cache["points"][fi], device=dev)
+    ground_pts = torch.as_tensor(cache["ground"][fi], device=dev)
+    summary = {}
+    with torch.no_grad():
+        for samples in (opt.num_coarse, opt.num_fine):
+            pts = chunk_points(rays["rays_o"], rays["rays_d"], cfg.near_lidar, cfg.far_lidar,
+                               cfg.bound, samples)
+            print(f"  {pts.shape[0]} points: {TRAIN_RAYS} training rays x {samples} samples",
+                  flush=True)
+            for case in kernel_cases(field, params, gen, pts) + backward_cases(
+                    field, params, gen, pts):
+                check_case(case, summary, True, 10, 2)
+            torch.cuda.empty_cache()
+        print(f"  flow loss: {flow_pts.shape[0]} cloud and {ground_pts.shape[0]} ground points "
+              f"(frame {fi})", flush=True)
+        for backward in (False, True):
+            for case in flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward):
+                check_case(case, summary, True, 10, 2)
+    return finish(summary)
+
+
+def launches_per_step(field):
+    """Kernel launches of one flagship train step, from the field's shape:
+    per density call (two per step) the static hash, the hashed static
+    planes (one launch for the three), the flow grid and the three dynamic
+    hash planes on hash_grid_*, each dense static scale on plane_bilinear_*,
+    each scale's time planes on plane_linear_*; plus the flow loss's two
+    flow-grid encodes. Backward launches mirror the forward ones."""
+    planes = field.planes_encoder
+    n_scales = len(planes.multiscale_res)
+    hashed = sum(planes._static_hashed(si, planes._scale_reso(sc))
+                 for si, sc in enumerate(planes.multiscale_res))
+    per_call = {"hash_grid": 1 + hashed + 1 + 3, "plane_bilinear": n_scales - hashed,
+                "plane_linear": n_scales}
+    extra = {"hash_grid": 2, "plane_bilinear": 0, "plane_linear": 0}
+    return {f"{k}_{d}": 2 * v + extra[k] for k, v in per_call.items() for d in ("fwd", "bwd")}
+
+
+def leaf_groups(params):
+    """Top-level group of each leaf, in tree order."""
+    from lidar4d_tpu_torch.interop import tree_leaves
+
+    return [k for k in sorted(params) for _ in tree_leaves(params[k])]
+
+
+def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
+    """One step of the flagship field on CHECK_RAYS rays, card vs CPU, from
+    the same O(0.1-1) parameters, float32 MLPs and the same draws: the loss,
+    every gradient leaf and the post-step parameters."""
+    from lidar4d_tpu_torch.interop import tree_to_torch
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.interop import tree_leaves
+    from lidar4d_tpu_torch.train.train_step import (
+        flow_cache_to_device, init_train_state, make_train_step)
+
+    signal = signal_params(params)
+    loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
+                          num_frames=field.cfg.num_frames, iters=ITERS)
+    runs = {}
+    cpu_field = LiDAR4DField(field.cfg, device="cpu")
+    draws = None
+    with mlp_dtype(torch.float32):
+        for d, f in (("cpu", cpu_field), ("cuda", field)):
+            state, optim = init_train_state(f, lr=LR, iters=ITERS,
+                                            params=tree_to_torch(signal, f.device))
+            step = make_train_step(f, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar,
+                                   fov_lidar=FOV, num_rays=CHECK_RAYS, patch_size=1,
+                                   num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
+            if draws is None:
+                draws = step.draw()
+            dd = {k: v.to(f.device) if torch.is_tensor(v) else v for k, v in draws.items()}
+            fc = flow_cache_to_device(cache, f.device)
+            grads, metrics = step.grads(state.params, ds.frame(0), fc, dd, 0)
+            optim.step(state.params, grads, state.opt_state)
+            runs[d] = ({k: float(v) for k, v in metrics.items()},
+                       [None if g is None else g.cpu() for g in grads],
+                       [p.detach().cpu() for p in tree_leaves(state.params)])
+    (m_cpu, g_cpu, p_cpu), (m_gpu, g_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    for k in m_cpu:
+        rel = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+        print(f"  card vs cpu {k}: {m_gpu[k]:.6f} vs {m_cpu[k]:.6f}, rel {rel:.3e} "
+              f"(tolerance {STEP_RTOL:g})", flush=True)
+        if not (np.isfinite(m_gpu[k]) and rel <= STEP_RTOL):
+            raise AssertionError(f"card vs cpu step {k}: {rel} > {STEP_RTOL}")
+    worst, worst_step, failures = {}, 0.0, []
+    labels = tree_leaves(field.param_group_labels(signal))
+    p0 = tree_leaves(signal)
+    for i, (group, lb, a, b, pa, pb, init) in enumerate(zip(
+            leaf_groups(signal), labels, g_gpu, g_cpu, p_gpu, p_cpu, p0)):
+        if b is None or lb == "unet":
+            if a is not None and a.abs().max() > 0:
+                raise AssertionError(f"leaf {i} ({group}): card has a gradient, cpu none")
+            continue
+        scale = b.abs().max().item()
+        if scale == 0:
+            continue
+        rel = (a - b).abs().max().item() / scale
+        tol = STEP_GRAD_RTOL[group]
+        worst[group] = max(worst.get(group, 0.0), rel)
+        if not (torch.isfinite(a).all() and rel <= tol):
+            failures.append(f"card vs cpu grad leaf {i} ({group}): {rel} > {tol}")
+        step_size = LR * (0.1 if lb == "head" else 1.0)
+        sure = b.abs() > SIGN_FLOOR * tol * scale
+        moved = (pa - pb)[sure].abs().max().item() if sure.any() else 0.0
+        worst_step = max(worst_step, moved / step_size)
+        if moved > 1e-3 * step_size:
+            failures.append(f"post-step leaf {i} ({group}) differs by {moved}")
+        if (pa - torch.as_tensor(init)).abs().max().item() > step_size * (1 + 1e-3):
+            failures.append(f"post-step leaf {i} ({group}) moved more than lr")
+    print("  card vs cpu gradients, max relative gap by group: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+          + f" (tolerances {STEP_GRAD_RTOL}); post-step params where |g| > {SIGN_FLOOR} x "
+          f"tolerance x max|g|: max gap {worst_step:.3e} of lr x group multiplier "
+          "(tolerance 1e-3)", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def profile_step(step, state, frame, cache):
+    """Device time by kernel over one train step (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("hash_grid_fwd", "hash_grid_bwd", "plane_bilinear_fwd", "plane_bilinear_bwd",
+             "plane_linear_fwd", "plane_linear_bwd")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, frame, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(r[2] for r in rows)
+    groups = {k: 0.0 for k in (*names, "matmul", "sort", "scatter/gather", "reduce", "cat",
+                               "other")}
+    for key, _, ms in rows:
+        low = key.lower()
+        group = next((g for g in names if g in low), None)
+        if group is None:
+            group = ("matmul" if any(k in low for k in ("gemm", "cutlass", "sm90_xmma", "nvjet"))
+                     else "sort" if "sort" in low
+                     else "scatter/gather" if any(k in low for k in ("scatter", "gather",
+                                                                     "index"))
+                     else "reduce" if "reduce" in low
+                     else "cat" if "cat" in low
+                     else "other")
+        groups[group] += ms
+    print(f"  profile 1 train step: wall {wall_ms:.1f} ms (profiler on), device busy "
+          f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    print("  device ms by group " + json.dumps({k: round(v, 3) for k, v in groups.items()}),
+          flush=True)
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15]:
+        print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+
+
+def train(field, params, ds, cache, opt, dev):
+    """WARMUP + TIMED flagship train steps from `params` (updated in place),
+    bfloat16 MLPs, the flow loss on; returns the launch counts of all steps."""
+    from lidar4d_tpu_torch.ops import _cuda
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.train.train_step import (
+        flow_cache_to_device, init_train_state, make_train_step)
+
+    loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
+                          num_frames=field.cfg.num_frames, iters=ITERS)
+    state, optim = init_train_state(field, lr=LR, iters=ITERS, params=params)
+    step = make_train_step(field, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV,
+                           num_rays=TRAIN_RAYS, patch_size=1, num_coarse=opt.num_coarse,
+                           num_fine=opt.num_fine, seed=SEED)
+    fc = flow_cache_to_device(cache, dev)
+    frames = [{k: torch.as_tensor(v, device=dev) if k != "time" else v
+               for k, v in ds.frame(i).items()} for i in range(STEP_FRAMES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    losses, times = [], []
+    for i in range(WARMUP + TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, frames[i % STEP_FRAMES], fc)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (m, t) in enumerate(zip(losses, times)):
+        print(f"  step {i} ({'warm-up' if i < WARMUP else 'timed'}): {t * 1e3:.1f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in m.items()), flush=True)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i}: a loss is not finite: {m}")
+    step_s = float(np.mean(times[WARMUP:]))
+    print(f"  flagship train step: {step_s * 1e3:.2f} ms/step (mean of {TIMED}, min "
+          f"{min(times[WARMUP:]) * 1e3:.2f}), {TRAIN_RAYS / step_s:.1f} train rays/s per GPU, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    want = launches_per_step(field)
+    n_steps = WARMUP + TIMED
+    print(f"  launches per step {json.dumps({k: v / n_steps for k, v in launches.items()})} "
+          f"(expected {json.dumps(want)})", flush=True)
+    for name, per_step in want.items():
+        if launches[name] != per_step * n_steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
+                                 f"expected {per_step} per step")
+    profile_step(step, state, frames[0], fc)
+    return launches
 
 
 def main():
@@ -465,8 +890,8 @@ def main():
     if pred is None or pred.ndim != 2 or pred.shape[1] != 4 or not np.isfinite(pred).all():
         raise AssertionError("point cloud is not a finite [M, 4] array")
     for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched during the render")
+        if (count <= 0) if name.endswith("_fwd") else (count != 0):
+            raise AssertionError(f"kernel {name}: {count} launches during the render")
 
     torch.cuda.synchronize()
     t_steady = time.perf_counter()
@@ -478,9 +903,32 @@ def main():
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_render(sim, rays_o[:1], rays_d[:1], times[:1])
     seconds["slice"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as root:
+        phase("scene")
+        t0 = time.perf_counter()
+        ds, cache, scale = make_scene(root)
+        seconds["scene"] = time.perf_counter() - t0
+    tfield = train_field(field, scale)
+
+    phase("train-kernels")
+    t0 = time.perf_counter()
+    train_summary = check_train_kernels(tfield, params, ds, cache, opt, dev)
+    seconds["train-kernels"] = time.perf_counter() - t0
+
+    phase("train")
+    t0 = time.perf_counter()
+    check_step_card_vs_cpu(tfield, params, ds, cache, opt, dev)
+    seconds["train-check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_launches = train(tfield, params, ds, cache, opt, dev)
+    seconds["train"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print("seconds " + json.dumps({k: round(v, 2) for k, v in seconds.items()}), flush=True)
 
+    print("  render-size forward kernels (one 16,384-ray chunk): " + json.dumps(
+        {k: {f: round(v, 4) if isinstance(v, float) else v for f, v in s.items()}
+         for k, s in summary.items()}), flush=True)
     sources = {
         "hash_grid_fwd": ("lidar4d_tpu_torch/csrc/hash_grid_fwd.cu",
                           "lidar4d_tpu/ops/hash_onehot.py:700"),
@@ -488,12 +936,18 @@ def main():
                                "lidar4d_tpu/ops/plane_onehot.py:74"),
         "plane_linear_fwd": ("lidar4d_tpu_torch/csrc/plane_linear_fwd.cu",
                              "lidar4d_tpu/ops/plane_onehot.py:381"),
+        "hash_grid_bwd": ("lidar4d_tpu_torch/csrc/hash_grid_bwd.cu",
+                          "lidar4d_tpu/ops/hash_onehot.py:282"),
+        "plane_bilinear_bwd": ("lidar4d_tpu_torch/csrc/plane_bilinear_bwd.cu",
+                               "lidar4d_tpu/ops/plane_onehot.py:97"),
+        "plane_linear_bwd": ("lidar4d_tpu_torch/csrc/plane_linear_bwd.cu",
+                             "lidar4d_tpu/ops/plane_onehot.py:406"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        s = summary[name]
+        s = train_summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": s["max_abs_err"],
+                        "launches": train_launches[name], "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
     print(smi)

@@ -12,31 +12,35 @@ import numpy as np
 import torch
 
 
-def tree_to_torch(tree, device):
-    """Nested dicts / lists / tuples of arrays -> the same tree of float32
-    tensors on `device`."""
+def tree_map(fn, *trees):
+    """fn applied leaf by leaf to trees of nested dicts / lists / tuples of
+    one structure (lists and tuples come back as lists)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree in the order `jax.tree.leaves` gives them (dict
+    keys sorted)."""
     if isinstance(tree, dict):
-        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [tree_to_torch(v, device) for v in tree]
-    return torch.tensor(np.asarray(tree, np.float32), device=device)
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to_torch(tree, device):
+    """A tree of arrays -> the same tree of float32 tensors on `device`."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree)
 
 
 def tree_to_numpy(tree):
     """A tree of tensors -> the same tree of float32 numpy arrays."""
-    if isinstance(tree, dict):
-        return {k: tree_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy().astype(np.float32)
-
-
-def _shapes(tree):
-    if isinstance(tree, dict):
-        return {k: _shapes(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_shapes(v) for v in tree]
-    return tuple(np.shape(tree))
+    return tree_map(lambda t: t.detach().cpu().numpy().astype(np.float32), tree)
 
 
 def params_from_jax(field, jax_tree):
@@ -47,8 +51,8 @@ def params_from_jax(field, jax_tree):
     init for `field.cfg` (U-Net params and state included); a mismatch
     raises instead of loading weights into the wrong slots.
     """
-    want = _shapes(field.init(seed=0))
-    got = _shapes(jax_tree)
+    want = tree_map(np.shape, field.init(seed=0))
+    got = tree_map(np.shape, jax_tree)
     if want != got:
         raise ValueError(f"JAX parameter tree does not match the field:\n{got}\n!=\n{want}")
     return tree_to_torch(jax_tree, field.device)

@@ -104,6 +104,11 @@ class HashGrid4D:
 
         xs: [V, N, 3] in [0, 1] (variants may be flow-warped); ts: V scalar
         times. Returns [V, N, 3*L*F/B], per variant equal to forward_dynamic.
+        Variant 0 is differentiable; variants 1..V-1 are the reference's
+        `torch.no_grad()` neighbour lookups (reference hash_field.py
+        forward_dynamic_multi): their blended tables and their encoded
+        output are detached, so neither the tables nor the warped
+        coordinates (the flow net) get a gradient through them.
         """
         x = torch.clamp(xs, 0.0, 1.0)
         ws = torch.from_numpy(
@@ -111,7 +116,8 @@ class HashGrid4D:
         feats = []
         for p, sel in enumerate(_PLANE_SELS):
             tabs = [self._blended_table(params, p, t) for t in ts]
-            feats.append(hash_encode_fact_multi_folded(
-                self.dynamic_spec(p), tabs[0], torch.stack(tabs[1:]),
-                x[:, :, list(sel)].contiguous(), ws))
+            g = hash_encode_fact_multi_folded(
+                self.dynamic_spec(p), tabs[0], torch.stack(tabs[1:]).detach(),
+                x[:, :, list(sel)].contiguous(), ws)
+            feats.append(torch.cat([g[:1], g[1:].detach()]))
         return torch.cat(feats, dim=-1)

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lidar4d_tpu_torch.interop import tree_to_torch
+from lidar4d_tpu_torch.interop import tree_map, tree_to_torch
 from lidar4d_tpu_torch.models.flow_field import FlowField
 from lidar4d_tpu_torch.models.hash_field import HashGrid4D
 from lidar4d_tpu_torch.models.planes_field import Planes4D
@@ -187,8 +187,11 @@ class LiDAR4DField:
             ts = (t, np.float32(t1), np.float32(t2))
             hash_d, hash_d1, hash_d2 = self.hash_encoder.forward_dynamic_multi(
                 params["hash"], xs, ts)
+            # coord_grad_lead=1: variant 0's coordinates are ray positions;
+            # the warped variants keep their coordinate gradient, the flow
+            # net's only gradient path through the planes
             plane_d, plane_d1, plane_d2 = self.planes_encoder.forward_dynamic_scalar_t_multi(
-                params["planes"], xs, ts)
+                params["planes"], xs, ts, coord_grad_lead=1)
             # has_next / has_prev: the reference masks with 0/1 weights
             if frame_idx >= c.num_frames - 1:
                 hash_d1, plane_d1 = hash_d, plane_d
@@ -213,3 +216,12 @@ class LiDAR4DField:
         intensity = torch.sigmoid(apply_mlp(params["intensity"], h)[:, 0])
         raydrop = torch.sigmoid(apply_mlp(params["raydrop"], h)[:, 0])
         return torch.stack([raydrop, intensity], dim=-1)
+
+    # ------------------------------------------------ optimizer group labels
+    def param_group_labels(self, params):
+        """Tree of labels beside `params` (reference `param_group_labels`):
+        encoders "base" (lr), heads and flow net "head" (0.1 lr), U-Net
+        "unet" (frozen: trained in the refine stage)."""
+        group = {"planes": "base", "hash": "base", "flow": "head", "sigma": "head",
+                 "intensity": "head", "raydrop": "head", "unet": "unet"}
+        return {k: tree_map(lambda _, g=group[k]: g, v) for k, v in params.items()}

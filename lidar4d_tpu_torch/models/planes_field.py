@@ -9,9 +9,12 @@ axis), and — for the top `hash_scales` scales — a static plane stored as a
 [2^hash_log2, C] 1-level 2D hash table.
 
 Static dense planes go through `plane_bilinear` (one launch per scale for
-its three planes), hashed static planes through `hash_grid_fwd` (one launch
-for the three planes), and the dynamic planes, whose time axis collapses at
-the scalar t of a density query, through `plane_linear`.
+its three planes, forward and backward), hashed static planes through
+`hash_grid` (one launch for the three planes), and the dynamic planes,
+whose time axis collapses at the scalar t of a density query, through
+`plane_linear`. The static lookups' points are ray positions, so neither
+takes a coordinate gradient; the time-plane collapse stays in PyTorch, so
+autograd carries the time planes' gradient through it.
 """
 
 from dataclasses import dataclass
@@ -22,7 +25,7 @@ import torch
 
 from lidar4d_tpu_torch.ops.grid_sample import scalar_lerp_weights
 from lidar4d_tpu_torch.ops.hash_enc import HashEncoderSpec
-from lidar4d_tpu_torch.ops.hash_onehot import hash_grid_fwd
+from lidar4d_tpu_torch.ops.hash_onehot import hash_grid
 from lidar4d_tpu_torch.ops.plane_onehot import plane_bilinear, plane_linear
 
 _COO_COMBS = tuple(combinations(range(4), 2))
@@ -96,16 +99,17 @@ class Planes4D:
                 reso = self._scale_reso(self.multiscale_res[si])
                 spec = self._hash_spec(reso[0])
                 xs = torch.stack([pts[:, list(c)] for c in _STATIC_COMBS])
-                feats = hash_grid_fwd(spec, torch.stack(group),
-                                      torch.clamp(xs, 0.0, 1.0))      # [3, N, C]
+                feats = hash_grid(spec, torch.stack(group),
+                                  torch.clamp(xs, 0.0, 1.0))          # [3, N, C]
                 outs.append(feats[0] * feats[1] * feats[2])
             else:
                 pt = torch.stack([pts[:, list(c)] for c in _STATIC_COMBS])
-                feats = plane_bilinear(torch.stack(group), pt)          # [3, C, N]
+                feats = plane_bilinear(torch.stack(group), pt,
+                                       coord_grad=False)                # [3, C, N]
                 outs.append((feats[0] * feats[1] * feats[2]).T)
         return torch.cat(outs, dim=-1)
 
-    def forward_dynamic_scalar_t_multi(self, params, xyzs, ts):
+    def forward_dynamic_scalar_t_multi(self, params, xyzs, ts, coord_grad_lead=0):
         """Dynamic (xt, yt, zt) features of V variants, each at a scalar time.
 
         Each [C, T, S] time plane collapses over T at the variant's t with the
@@ -115,6 +119,9 @@ class Planes4D:
 
         Args:
           xyzs: [V, N, 3] spatial coords in [0, 1]; ts: V scalar times.
+          coord_grad_lead: the first `coord_grad_lead` variants get a zero
+            coordinate gradient, and `plane_linear` skips that work for
+            their 3 * coord_grad_lead tables (variant-major table axis).
         Returns:
           [V, N, C * n_scales].
         """
@@ -130,7 +137,8 @@ class Planes4D:
                 y0, y1, ty = scalar_lerp_weights(t, t_res)
                 g_red.append((1.0 - ty) * g[:, :, y0] + ty * g[:, :, y1])  # [3, C, S]
             g_red = torch.stack(g_red).reshape(v * 3, c_dim, g.shape[3])
-            feats = plane_linear(g_red, xs).reshape(v, 3, n, c_dim)
+            feats = plane_linear(g_red, xs, coord_grad_lead=3 * coord_grad_lead)
+            feats = feats.reshape(v, 3, n, c_dim)
             outs.append(feats[:, 0] * feats[:, 1] * feats[:, 2])       # [V, N, C]
         return torch.cat(outs, dim=-1)
 

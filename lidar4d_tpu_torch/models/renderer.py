@@ -1,9 +1,9 @@
-"""LiDAR volume renderer, inference path.
+"""LiDAR volume renderer: the training ray render and the chunked renders.
 
-Port of the inference half of `lidar4d_tpu/models/renderer.py`: uniform or
-hierarchical (coarse + inverse-CDF fine) sampling, alpha compositing, and
-the chunked full-frame renders. The reference's TPU rewrites of
-`sample_pdf`'s lookups (one-hot contraction) and `merge_sorted` (rank
+Port of `lidar4d_tpu/models/renderer.py`: uniform or hierarchical (coarse +
+inverse-CDF fine) sampling, training-time jitter, alpha compositing, and
+the chunked full-frame inference renders (under `torch.no_grad()`). The
+reference's TPU rewrites of `sample_pdf`'s lookups (one-hot contraction) and `merge_sorted` (rank
 arithmetic) are proven bitwise-equal to a gather and a stable argsort
 (tests/test_models.py), so this port uses `torch.searchsorted`,
 `torch.gather` and `torch.sort(stable=True)` directly. The reference's
@@ -19,10 +19,13 @@ import torch
 from lidar4d_tpu_torch.ops._cuda import resolve_device
 
 
-def sample_pdf(z_mid, weights, n_samples):
-    """Deterministic inverse-CDF importance sampling (midpoint u).
+def sample_pdf(z_mid, weights, n_samples, u_jitter=None):
+    """Inverse-CDF importance sampling of z values.
 
-    z_mid [N, C] sorted bin centres, weights [N, C] -> [N, n_samples] z.
+    z_mid [N, C] sorted bin centres, weights [N, C] -> [N, n_samples] z
+    (sorted per ray). u_jitter: None for the midpoints u = (i + 0.5) / S, or
+    U(0, 1) draws [N, S] for stratified jitter, u += (draw - 0.5) / S
+    clipped to [1e-6, 1 - 1e-6] (reference `sample_pdf` with a key).
     """
     n, c = weights.shape
     pdf = weights + 1e-5
@@ -31,7 +34,10 @@ def sample_pdf(z_mid, weights, n_samples):
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)     # [N, C+1]
 
     u = (torch.arange(n_samples, dtype=torch.float32, device=z_mid.device) + 0.5) / n_samples
-    u = u.expand(n, n_samples).contiguous()
+    u = u.expand(n, n_samples)
+    if u_jitter is not None:
+        u = torch.clamp(u + (u_jitter - 0.5) / n_samples, 1e-6, 1.0 - 1e-6)
+    u = u.contiguous()
     # count of cdf entries <= u, minus one (cdf is nondecreasing)
     below = torch.searchsorted(cdf, u, right=True) - 1
     below = torch.clamp(below, 0, c - 1)
@@ -82,15 +88,30 @@ def _query_density(field, params, rays_o, rays_d, z_vals, t, bound):
     return dens["sigma"].reshape(n, steps), dens["geo_feat"].reshape(n, steps, -1)
 
 
-@torch.no_grad()
+def render_draws(n, num_steps, num_coarse, num_fine, generator, device):
+    """The U(0, 1) draws of one perturbed render: z jitter [n, num_coarse]
+    (or [n, num_steps] without hierarchical sampling) and, hierarchical,
+    sample_pdf's u jitter [n, num_fine]."""
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator, device=device)
+
+    if num_coarse > 0:
+        return {"z_jitter": rand(n, num_coarse), "u_jitter": rand(n, num_fine)}
+    return {"z_jitter": rand(n, num_steps)}
+
+
 def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
-                num_fine=0):
-    """Render a batch of rays (inference: no perturbation, no aux outputs).
+                num_fine=0, perturb=False, with_aux=False, draws=None):
+    """Render a batch of rays through the field (differentiable).
 
     rays_o, rays_d: [N, 3]; t: scalar time in [0, 1]. With num_coarse > 0,
     two-pass hierarchical sampling (num_coarse uniform + num_fine
-    inverse-CDF samples, merged); else num_steps uniform samples.
-    Returns dict(depth_lidar [N], image_lidar [N, 2], weights_sum_lidar [N]).
+    inverse-CDF samples, merged; the coarse weights that place the fine
+    samples are detached); else num_steps uniform samples. perturb=True
+    jitters the z samples by up to half a bin and the inverse-CDF u by up to
+    half a stratum, with the U(0, 1) draws `draws` (see `render_draws`).
+    Returns dict(depth_lidar [N], image_lidar [N, 2], weights_sum_lidar [N],
+    and with with_aux weights [N, T], z_vals [N, T]).
     """
     cfg = field.cfg
     n = rays_o.shape[0]
@@ -100,11 +121,14 @@ def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
 
     if num_coarse > 0:
         zc = near + (far - near) * torch.linspace(0.0, 1.0, num_coarse, device=dev)
-        zc = zc.expand(n, num_coarse).contiguous()
+        zc = zc.expand(n, num_coarse)
         dist_c = (far - near) / num_coarse
+        if perturb:
+            zc = zc + (draws["z_jitter"] - 0.5) * dist_c
+        zc = zc.contiguous()
         sigma_c, geo_c = _query_density(field, params, rays_o, rays_d, zc, t, bound)
-        w_c = _composite_weights(cfg, sigma_c, zc, dist_c)
-        zf = sample_pdf(zc, w_c, num_fine)
+        w_c = _composite_weights(cfg, sigma_c.detach(), zc, dist_c)
+        zf = sample_pdf(zc, w_c, num_fine, draws["u_jitter"] if perturb else None)
         sigma_f, geo_f = _query_density(field, params, rays_o, rays_d, zf, t, bound)
         z_vals, (sigma, geo) = merge_sorted(
             zc, zf,
@@ -114,8 +138,11 @@ def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
         sample_dist = (far - near) / num_steps
     else:
         z_vals = near + (far - near) * torch.linspace(0.0, 1.0, num_steps, device=dev)
-        z_vals = z_vals.expand(n, num_steps).contiguous()
+        z_vals = z_vals.expand(n, num_steps)
         sample_dist = (far - near) / num_steps
+        if perturb:
+            z_vals = z_vals + (draws["z_jitter"] - 0.5) * sample_dist
+        z_vals = z_vals.contiguous()
         sigma, geo = _query_density(field, params, rays_o, rays_d, z_vals, t, bound)
 
     weights = _composite_weights(cfg, sigma, z_vals, sample_dist)
@@ -124,11 +151,15 @@ def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
     attr = field.attribute(params, dirs, geo.reshape(-1, geo.shape[-1]))
     attr = torch.where(mask[:, None], attr, torch.zeros_like(attr)).reshape(n, num_steps, -1)
 
-    return {
+    out = {
         "depth_lidar": torch.sum(weights * z_vals, dim=-1),
         "image_lidar": torch.sum(weights[..., None] * attr, dim=-2),
         "weights_sum_lidar": torch.sum(weights, dim=-1),
     }
+    if with_aux:
+        out["weights"] = weights
+        out["z_vals"] = z_vals
+    return out
 
 
 @torch.no_grad()

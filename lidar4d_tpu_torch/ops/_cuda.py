@@ -38,6 +38,13 @@ _SIGNATURES = {
     "plane_bilinear_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grid, x, out, n_planes, n, channels, width, stream
     "plane_linear_fwd": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, cot, levels, dtab, n_variants, n, n_levels, n_dims, n_features, rows,
+    # smem_floats, stream
+    "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _P),
+    # pts, cot, dgrid, n_planes, n, channels, height, width, stream
+    "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, stream
+    "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -112,8 +119,8 @@ def check_cuda_tensor(name, t, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(
-            f"{name} requires grad: the CUDA kernels are forward-only so far "
-            "(run under torch.no_grad())")
+            f"{name} requires grad: a raw kernel wrapper does not differentiate; "
+            "call the differentiable entry point (its autograd.Function) instead")
 
 
 def aligned(t, nbytes=16):

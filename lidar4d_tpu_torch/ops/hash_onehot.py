@@ -1,19 +1,29 @@
-"""Hash-grid encodes on the CUDA kernel `hash_grid_fwd`, forward only.
+"""Hash-grid encodes on the CUDA kernels `hash_grid_fwd` / `hash_grid_bwd`.
 
-Port of the forward half of `lidar4d_tpu/ops/hash_onehot.py`. The TPU file
-wrote the row gather as one-hot matmuls because the TPU has no fast gather;
-Hopper gathers directly, so every entry point here runs one kernel,
-`csrc/hash_grid_fwd.cu`, which takes V tables and V point sets at once and
-computes corner rows and weights from x inside the kernel.
+Port of `lidar4d_tpu/ops/hash_onehot.py`. The TPU file wrote the row gather
+and its scatter as one-hot matmuls because the TPU has no fast gather;
+Hopper gathers and scatters directly, so every entry point here runs one
+forward kernel, `csrc/hash_grid_fwd.cu`, and one backward kernel,
+`csrc/hash_grid_bwd.cu`, each taking V tables and V point sets at once and
+computing corner rows and weights from x inside the kernel.
 
 Dispatch rule for every wrapper: a CPU tensor runs the plain PyTorch version
-(`hash_grid_fwd_plain`, built on `ops.hash_enc.hash_encode`); a CUDA tensor
-launches the kernel or raises. There is no fallback between the two.
+(`hash_grid_fwd_plain`, built on `ops.hash_enc.hash_encode`, and
+`hash_grid_bwd_plain`, autograd of it); a CUDA tensor launches the kernel or
+raises. There is no fallback between the two.
+
+Gradient contracts (the reference's custom VJPs, kept on both devices): the
+kernels give the TABLE gradient only. The coordinate cotangent is NaN when
+the incoming cotangent is nonzero (`_poison`), so a caller that
+differentiates through the coordinates fails loudly instead of training with
+a silent zero; such a caller passes `coord_grad=True` to the dispatchers and
+gets the plain path, which autograd differentiates in x too.
 
 The Lagrange "interpT" contraction commutes with the encode
 (`interpT(Encode(T, x), t) == Encode(fold(T, w(t)), x)`), so the folded
 entry points fold the table in PyTorch first (`_fold_table`, outside the
-kernel as in the reference) and encode at F' = F / num_basis features.
+kernel as in the reference) and encode at F' = F / num_basis features;
+autograd carries the folded table's gradient back through the fold.
 """
 
 import dataclasses
@@ -105,14 +115,118 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     return out
 
 
+def _smem_floats(spec: HashEncoderSpec):
+    """The kernel's shared-memory accumulator: the largest level slice
+    rows_l * F that fits its 64 KB (16384 floats), else 0."""
+    fits = [r * spec.n_features for r in spec.table_sizes if r * spec.n_features <= 16384]
+    return max(fits, default=0)
+
+
+def hash_grid_bwd_plain(spec: HashEncoderSpec, xs, cot, n_tables=None):
+    """Plain version of `hash_grid_bwd`: autograd of `hash_grid_fwd_plain`
+    with respect to the tables (the encode is linear in them)."""
+    v = xs.shape[0]
+    n_tables = v if n_tables is None else n_tables
+    with torch.enable_grad():
+        tables = torch.zeros((v, spec.n_rows, spec.n_features), dtype=cot.dtype,
+                             device=cot.device, requires_grad=True)
+        out = hash_grid_fwd_plain(spec, tables, xs.detach())
+        (grad,) = torch.autograd.grad(out, tables, cot)
+    if n_tables > v:
+        grad = torch.cat([grad, grad.new_zeros((n_tables - v, *grad.shape[1:]))])
+    return grad
+
+
+def hash_grid_bwd(spec: HashEncoderSpec, xs, cot, n_tables=None):
+    """Table gradient of `hash_grid_fwd` for the V point sets given.
+
+    Args:
+      xs:  [V, N, d] float32 coordinates, as given to the forward.
+      cot: [V, N, L*F] float32 cotangent of the forward's output.
+      n_tables: rows of the result's leading axis (default V); tables past
+        the V scattered ones get a zero gradient, so a caller trains the
+        first V of its tables alone.
+    Returns:
+      [n_tables, rows, F] float32.
+    """
+    v, n, _ = xs.shape
+    n_tables = v if n_tables is None else n_tables
+    if cot.shape != (v, n, spec.n_output_dims) or n_tables < v:
+        raise ValueError(f"hash_grid_bwd: xs {tuple(xs.shape)} / cot {tuple(cot.shape)} "
+                         f"/ {n_tables} tables do not match {spec}")
+    if xs.device.type == "cpu":
+        return hash_grid_bwd_plain(spec, xs, cot, n_tables)
+    if not onehot_eligible(spec):
+        raise ValueError(f"hash_grid_bwd kernel does not take {spec}")
+    _cuda.check_cuda_tensor("xs", xs)
+    _cuda.check_cuda_tensor("cot", cot)
+    cot = _cuda.aligned(cot)
+    dtab = torch.zeros((n_tables, spec.n_rows, spec.n_features), dtype=torch.float32,
+                       device=xs.device)
+    if n == 0:
+        return dtab
+    levels = _level_table(spec, xs.device)
+    _cuda.launch("hash_grid_bwd", xs.device, xs.data_ptr(), cot.data_ptr(),
+                 levels.data_ptr(), dtab.data_ptr(), v, n, spec.n_levels, spec.n_dims,
+                 spec.n_features, spec.n_rows, _smem_floats(spec))
+    return dtab
+
+
+def _poison(ref, cot):
+    """Per-variant coordinate cotangent of the kernels: NaN for a variant
+    whose incoming cotangent has a nonzero entry, else 0 (reference
+    `_poison_coord_grad`, gated per variant as in `_vjp_bwd_multi_folded`).
+    ref: [V, ...]; cot: [V, ...]."""
+    live = (cot != 0).reshape(cot.shape[0], -1).any(dim=1)
+    poison = torch.where(live, float("nan"), 0.0).to(ref.dtype)
+    return poison.reshape(-1, *([1] * (ref.ndim - 1))) * torch.ones_like(ref)
+
+
+class _HashGrid(torch.autograd.Function):
+    """V-variant hash encode: forward `hash_grid_fwd`, backward
+    `hash_grid_bwd` for the first `n_grad` tables (the others get a zero
+    gradient), NaN-poisoned cotangents for xs and for the Lagrange weights
+    ws (None when the caller has none)."""
+
+    @staticmethod
+    def forward(ctx, spec, n_grad, tables, xs, ws):
+        ctx.spec, ctx.n_grad = spec, n_grad
+        ctx.ws_shape = None if ws is None else ws.shape
+        ctx.save_for_backward(xs)
+        return hash_grid_fwd(spec, tables, xs)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (xs,) = ctx.saved_tensors
+        cot = cot.contiguous()
+        dtables = dxs = dws = None
+        if ctx.needs_input_grad[2]:
+            k = ctx.n_grad
+            dtables = hash_grid_bwd(ctx.spec, xs[:k], cot[:k], n_tables=xs.shape[0])
+        if ctx.needs_input_grad[3]:
+            dxs = _poison(xs, cot)
+        if ctx.needs_input_grad[4]:
+            dws = _poison(torch.ones(ctx.ws_shape, device=cot.device), cot)
+        return None, None, dtables, dxs, dws
+
+
+def hash_grid(spec: HashEncoderSpec, tables, xs):
+    """Differentiable `hash_grid_fwd`: [V, rows, F], [V, N, d] -> [V, N, L*F],
+    every table trained (the hashed static planes, one table per plane)."""
+    return _HashGrid.apply(spec, tables.shape[0], tables, xs, None)
+
+
 def hash_encode_onehot_fact(spec: HashEncoderSpec, table, x):
-    """Hash encode of one point set, [rows, F], [N, d] -> [N, L*F] (kernel on
-    CUDA, plain on CPU). The name is the reference's entry point."""
-    return hash_grid_fwd(spec, table[None], x[None])[0]
+    """Hash encode of one point set, [rows, F], [N, d] -> [N, L*F], with the
+    reference's contract: table gradient, NaN-poisoned x gradient."""
+    return _HashGrid.apply(spec, 1, table[None], x[None], None)[0]
 
 
-def hash_encode_auto(spec: HashEncoderSpec, table, x):
-    """Hash encode with the package's dispatch rule (see module docstring)."""
+def hash_encode_auto(spec: HashEncoderSpec, table, x, coord_grad=False):
+    """Hash encode with the package's dispatch rule (module docstring);
+    coord_grad=True takes the plain path, differentiable in x too."""
+    if coord_grad:
+        return hash_encode(spec, table, x)
     return hash_encode_onehot_fact(spec, table, x)
 
 
@@ -130,29 +244,37 @@ def _fold_table(table, w, fp):
 def hash_encode_folded(spec: HashEncoderSpec, table, x, w):
     """interpT(hash_encode(spec, table, x), t), the Lagrange contraction
     folded into the table. w: [B] = lagrange_weights(t, B). Returns
-    [N, L*F/B]."""
+    [N, L*F/B]. The table gradient runs the kernel at F' and autograd
+    expands it through `_fold_table` by w; x and w get NaN poison."""
     b = w.shape[0]
     fp = spec.n_features // b
-    return hash_encode_onehot_fact(_folded_spec(spec, b), _fold_table(table, w, fp), x)
+    folded = _fold_table(table, w.detach(), fp)
+    return _HashGrid.apply(_folded_spec(spec, b), 1, folded[None], x[None], w[None])[0]
 
 
 def hash_encode_fact_multi_folded(spec: HashEncoderSpec, table, tables_ng, xs, ws):
     """Folded encode of V point sets through V tables in one launch.
 
     table [rows, F] (variant 0), tables_ng [V-1, rows, F], xs [V, N, d],
-    ws [V, B] per-variant Lagrange weights. Returns [V, N, L*F/B].
+    ws [V, B] per-variant Lagrange weights. Returns [V, N, L*F/B]. Only
+    variant 0's table is trained; tables_ng get no gradient; the x and w
+    poison is gated per variant, so the warped variants, whose output the
+    caller detaches, pass a zero (not NaN) cotangent to the flow net.
     """
     b = ws.shape[1]
     fp = spec.n_features // b
-    tabs = torch.cat([table[None], tables_ng], dim=0)
-    return hash_grid_fwd(_folded_spec(spec, b), _fold_table(tabs, ws, fp), xs)
+    folded = torch.cat([_fold_table(table, ws[0].detach(), fp)[None],
+                        _fold_table(tables_ng.detach(), ws[1:].detach(), fp)])
+    return _HashGrid.apply(_folded_spec(spec, b), 1, folded, xs, ws)
 
 
-def hash_encode_interp_auto(spec: HashEncoderSpec, table, x, t, num_basis):
+def hash_encode_interp_auto(spec: HashEncoderSpec, table, x, t, num_basis,
+                            coord_grad=False):
     """interpT(encode(x), t): the folded encode when the spec splits into
-    basis chunks (kernel on CUDA, plain on CPU), else encode-then-interpT."""
-    if folded_eligible(spec, num_basis):
+    basis chunks (kernel on CUDA, plain on CPU), else encode-then-interpT.
+    coord_grad=True takes the plain path, differentiable in x too."""
+    if not coord_grad and folded_eligible(spec, num_basis):
         w = torch.from_numpy(lagrange_weights(t, num_basis)).to(x.device)
         return hash_encode_folded(spec, table, x, w)
-    g = hash_encode_auto(spec, table, x)
+    g = hash_encode_auto(spec, table, x, coord_grad=coord_grad)
     return lagrange_time_interp(g, t, spec.n_levels, spec.n_features, num_basis)

@@ -1,0 +1,134 @@
+"""Point-cloud filtering: range/ego filter, statistical outlier removal,
+RANSAC ground-plane extraction.
+
+A numpy / scipy copy of `lidar4d_tpu/utils/pointcloud.py` (the port imports
+nothing of the JAX package). The reference's C++ kNN extension (`native/`)
+is not carried over: the outlier removal here is its scipy cKDTree path.
+
+Behavioral parity with the reference's `utils/misc.py`:
+  * `range_filter` (misc.py:116-125) — distance / z-limit / ego-box mask;
+  * statistical outlier removal — the reference calls open3d's C++
+    `remove_statistical_outlier(64, 3.0)` (misc.py:133,151); here it is a
+    scipy cKDTree kNN with the same semantics (mean distance to k neighbors,
+    threshold mean + std_ratio * std over the cloud);
+  * `estimate_plane` / `my_ransac` (misc.py:18-113) — adaptive-iteration
+    RANSAC with the same sampling quirks (rejects samples whose first two
+    points are closer than 3 m in y; unnormalized plane fit);
+  * `point_removal` (misc.py:128-153) — 6x RANSAC union, ground = inliers
+    with z < -1, outlier removal before and after.
+
+Host-side numpy (preprocessing path), like the reference.
+"""
+
+import random
+
+import numpy as np
+from scipy.spatial import cKDTree
+
+
+def range_filter(pcd, dist_min=1, dist_max=50, z_limit=(-2.5, 4)):
+    dist = np.sqrt(np.sum(pcd[:, :3] ** 2, axis=1))
+    ego_mask = (
+        (pcd[:, 0] > -2) & (pcd[:, 0] < 2)
+        & (pcd[:, 1] > -1) & (pcd[:, 1] < 1)
+        & (pcd[:, 2] > -2) & (pcd[:, 2] < 2)
+    )
+    mask = (
+        (dist >= dist_min) & (dist <= dist_max)
+        & (pcd[:, 2] > z_limit[0]) & (pcd[:, 2] < z_limit[1])
+        & ~ego_mask
+    )
+    return pcd[mask]
+
+
+def statistical_outlier_removal(points, nb_neighbors=64, std_ratio=3.0):
+    """open3d remove_statistical_outlier semantics, by a scipy cKDTree kNN
+    (the reference's cKDTree path; its C++ grid-kNN extension is not
+    ported): keep the points whose mean distance to their k neighbours is
+    below the cloud's mean + std_ratio * std of that distance."""
+    n = points.shape[0]
+    if n <= nb_neighbors:
+        return points
+    tree = cKDTree(points)
+    # k+1 because the closest neighbor of each point is itself
+    dists, _ = tree.query(points, k=nb_neighbors + 1)
+    mean_d = dists[:, 1:].mean(axis=1)
+    thresh = mean_d.mean() + std_ratio * mean_d.std()
+    return points[mean_d < thresh]
+
+
+def estimate_plane(xyz, normalize=True):
+    """3-point plane fit (misc.py:18-57)."""
+    v1 = xyz[1, :] - xyz[0, :]
+    v2 = xyz[2, :] - xyz[0, :]
+    if not np.all(v1):
+        return None
+    dy1dy2 = v2 / v1
+    if not ((dy1dy2[0] != dy1dy2[1]) or (dy1dy2[2] != dy1dy2[1])):
+        return None
+    a = v1[1] * v2[2] - v1[2] * v2[1]
+    b = v1[2] * v2[0] - v1[0] * v2[2]
+    c = v1[0] * v2[1] - v1[1] * v2[0]
+    if normalize:
+        r = np.sqrt(a**2 + b**2 + c**2)
+        a, b, c = a / r, b / r, c / r
+    d = -(a * xyz[0, 0] + b * xyz[0, 1] + c * xyz[0, 2])
+    return np.array([a, b, c, d])
+
+
+def my_ransac(data, distance_threshold=0.3, P=0.99, sample_size=3, max_iterations=1000):
+    """Adaptive RANSAC plane search (misc.py:60-113)."""
+    max_point_num = -999
+    i = 0
+    K = 10.0
+    L = len(data)
+    R_L = range(L)
+    best_model, best_filt = None, None
+
+    while i < K:
+        s3 = random.sample(R_L, sample_size)
+        if abs(data[s3[0], 1] - data[s3[1], 1]) < 3:
+            continue
+        coeffs = estimate_plane(data[s3, :], normalize=False)
+        if coeffs is None:
+            continue
+        r = np.sqrt(coeffs[0] ** 2 + coeffs[1] ** 2 + coeffs[2] ** 2)
+        d = np.abs(data[:, :3] @ coeffs[:3] + coeffs[3]) / r
+        d_filt = d < distance_threshold
+        near = int(d_filt.sum())
+        if near > max_point_num:
+            max_point_num = near
+            best_model = coeffs
+            best_filt = d_filt
+            w = near / L
+            p_no_outliers = 1.0 - w**3
+            if 0 < p_no_outliers < 1:
+                K = np.log(1 - P) / np.log(p_no_outliers)
+        i += 1
+        if i > max_iterations:
+            break
+
+    if best_filt is None:
+        return np.array([], dtype=np.int64), None
+    return np.argwhere(best_filt).flatten(), best_model
+
+
+def point_removal(pc_raw):
+    """Split a cloud into (non-ground, ground) — misc.py:128-153."""
+    pc_rm = range_filter(pc_raw)
+    pc_rm = statistical_outlier_removal(pc_rm[:, :3])
+
+    indices, _ = my_ransac(pc_rm[:, :3], distance_threshold=0.15)
+    index_total = indices
+    for _ in range(5):
+        indices, _ = my_ransac(pc_rm[:, :3], distance_threshold=0.15)
+        index_total = np.unique(np.concatenate((index_total, indices)))
+    indices = index_total.astype(np.int64)
+
+    indices = indices[pc_rm[indices, 2] < -1]
+    pc_ground = pc_rm[indices].copy()
+
+    pc_rm[indices] = 999 + 1
+    pc_rm = pc_rm[pc_rm[:, 2] <= 999]
+    pc_rm = statistical_outlier_removal(pc_rm[:, :3])
+    return pc_rm, pc_ground

@@ -21,6 +21,7 @@ from lidar4d_tpu_torch.ops.hash_enc import HashEncoderSpec
 pytestmark = pytest.mark.cuda
 
 RTOL = 1e-6      # same gathers in the same order; only FMA contraction differs
+GRAD_RTOL = 1e-4  # atomics add in another order than the plain scatter
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +94,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         ho.hash_grid_fwd(spec, tables.requires_grad_(), _rand(dev, 1, 10, 3))
 
 
+def test_plane_bilinear_coord_grad_raises_on_cuda(dev):
+    """The coordinate-gradient kernel (the reference's `_vjp_bwd`) is not
+    ported: a grad-requiring CUDA input raises, it does not fall back."""
+    grid = _rand(dev, 3, 8, 16, 16).requires_grad_()
+    pts = _rand(dev, 3, 100, 2).requires_grad_()
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(NotImplementedError):
+        po.plane_bilinear(grid, pts, coord_grad=True)
+    assert _cuda.LAUNCHES == before
+
+
 def test_zero_points_launch_nothing(dev):
     before = dict(_cuda.LAUNCHES)
     assert po.plane_linear(_rand(dev, 9, 8, 32), torch.zeros(9, 0, device=dev)).shape == (9, 0, 8)
@@ -103,3 +115,109 @@ def test_aligned_copy(dev):
     t = _rand(dev, 17)
     assert _cuda.aligned(t[1:]).data_ptr() % 16 == 0
     np.testing.assert_array_equal(_cuda.aligned(t[1:]).cpu().numpy(), t[1:].cpu().numpy())
+
+
+@pytest.mark.parametrize("spec", [
+    HashEncoderSpec(3, 6, 8, 11, 64, 2048),      # flagship static
+    HashEncoderSpec(3, 4, 2, 11, 16, 256),       # flagship flow, folded
+    HashEncoderSpec(2, 6, 2, 10, 64, 2048),      # flagship dynamic, folded
+    HashEncoderSpec(2, 1, 8, 11, 255, 255),      # flagship hashed static plane
+    HashEncoderSpec(3, 3, 4, 12, 4, 32),         # dense and hashed levels
+    HashEncoderSpec(3, 2, 8, 14, 4, 64),         # a level too large for shared memory
+    HashEncoderSpec(2, 2, 1, 8, 4, 8),           # F = 1
+], ids=str)
+def test_hash_grid_bwd_matches_plain(dev, spec):
+    xs = _rand(dev, 3, 5000, spec.n_dims, seed=7)
+    xs[:, :3] = torch.tensor([0.0, 1.0, 0.5], device=dev)[:, None]
+    cot = _rand(dev, 3, 5000, spec.n_output_dims, lo=-1, hi=1, seed=8)
+    before = _cuda.LAUNCHES["hash_grid_bwd"]
+    got = ho.hash_grid_bwd(spec, xs[:1], cot[:1], n_tables=3)
+    assert _cuda.LAUNCHES["hash_grid_bwd"] == before + 1
+    assert got.shape == (3, spec.n_rows, spec.n_features)
+    assert _rel(got[:1], ho.hash_grid_bwd_plain(spec, xs[:1], cot[:1])) <= GRAD_RTOL
+    assert not got[1:].any()
+    assert _rel(ho.hash_grid_bwd(spec, xs, cot), ho.hash_grid_bwd_plain(spec, xs, cot)) \
+        <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (64, 64), (128, 128), (5, 17)])
+def test_plane_bilinear_bwd_matches_plain(dev, hw):
+    pts = _rand(dev, 3, 7000, 2, lo=-0.1, hi=1.1, seed=9)
+    cot = _rand(dev, 3, 8, 7000, lo=-1, hi=1, seed=10)
+    before = _cuda.LAUNCHES["plane_bilinear_bwd"]
+    got = po.plane_bilinear_bwd(pts, cot, hw)
+    assert _cuda.LAUNCHES["plane_bilinear_bwd"] == before + 1
+    assert _rel(got, po.plane_bilinear_bwd_plain(pts, cot, hw)) <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("c,w,lead", [(8, 32, 3), (8, 256, 0), (4, 2, 9), (16, 64, 1)])
+def test_plane_linear_bwd_matches_plain(dev, c, w, lead):
+    grid = _rand(dev, 9, c, w, lo=0.1, hi=1.0, seed=11)
+    x = _rand(dev, 9, 6000, lo=-0.1, hi=1.1, seed=12)
+    cot = _rand(dev, 9, 6000, c, lo=-1, hi=1, seed=13)
+    before = _cuda.LAUNCHES["plane_linear_bwd"]
+    dg, dx = po.plane_linear_bwd(grid, x, cot, lead)
+    assert _cuda.LAUNCHES["plane_linear_bwd"] == before + 1
+    want_dg, want_dx = po.plane_linear_bwd_plain(grid, x, cot, lead)
+    assert _rel(dg, want_dg) <= GRAD_RTOL
+    assert not dx[:lead].any()
+    if lead < 9:
+        assert _rel(dx, want_dx) <= GRAD_RTOL
+
+
+def test_autograd_functions_launch_backward_kernels(dev):
+    """A backward pass through the differentiable entry points launches
+    each backward kernel once and matches the plain versions' gradients."""
+    spec = HashEncoderSpec(3, 3, 8, 10, 8, 64)
+    table = _rand(dev, spec.n_rows, 8, lo=-1, hi=1, seed=14).requires_grad_()
+    x = _rand(dev, 4000, 3, seed=15)
+    grid = _rand(dev, 3, 8, 32, 32, seed=16).requires_grad_()
+    pts = _rand(dev, 3, 4000, 2, seed=17)
+    lin = _rand(dev, 9, 8, 64, seed=18).requires_grad_()
+    xl = _rand(dev, 9, 4000, seed=19).requires_grad_()
+    before = dict(_cuda.LAUNCHES)
+    loss = (ho.hash_encode_auto(spec, table, x).square().sum()
+            + po.plane_bilinear(grid, pts).square().sum()
+            + po.plane_linear(lin, xl, coord_grad_lead=3).square().sum())
+    loss.backward()
+    for name in ("hash_grid_bwd", "plane_bilinear_bwd", "plane_linear_bwd"):
+        assert _cuda.LAUNCHES[name] == before[name] + 1, name
+    tp, gp, lp, xp = (t.detach().cpu().requires_grad_() for t in (table, grid, lin, xl))
+    want = (ho.hash_encode_auto(spec, tp, x.cpu()).square().sum()
+            + po.plane_bilinear(gp, pts.cpu()).square().sum()
+            + po.plane_linear(lp, xp, coord_grad_lead=3).square().sum())
+    want.backward()
+    for got, ref in ((table, tp), (grid, gp), (lin, lp), (xl, xp)):
+        assert _rel(got.grad.cpu(), ref.grad) <= GRAD_RTOL
+
+
+def _ray_points(dev, n_rays, steps, seed):
+    """[n_rays * steps, 3] points in [0, 1]^3, `steps` consecutive samples
+    along each ray, as a density call sees them: neighbouring points share
+    cells, rows and columns, which the backward kernels sum in registers."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    o = 0.5 + 0.02 * torch.randn(n_rays, 1, 3, generator=g, device=dev)
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 1, 3, generator=g, device=dev), dim=-1)
+    z = torch.linspace(0.0, 0.6, steps, device=dev)[None, :, None]
+    return torch.clamp(o + d * z, 0.0, 1.0).reshape(-1, 3)
+
+
+def test_backward_kernels_on_ray_ordered_points(dev):
+    pts = _ray_points(dev, 64, 256, seed=20)
+    n = pts.shape[0]
+    spec = HashEncoderSpec(3, 6, 8, 11, 64, 2048)
+    cot = _rand(dev, 1, n, spec.n_output_dims, lo=-1, hi=1, seed=21)
+    assert _rel(ho.hash_grid_bwd(spec, pts[None], cot),
+                ho.hash_grid_bwd_plain(spec, pts[None], cot)) <= GRAD_RTOL
+    q = torch.stack([pts[:, [0, 1]], pts[:, [0, 2]], pts[:, [1, 2]]]).contiguous()
+    cot = _rand(dev, 3, 8, n, lo=-1, hi=1, seed=22)
+    for hw in ((32, 32), (128, 128)):
+        assert _rel(po.plane_bilinear_bwd(q, cot, hw), po.plane_bilinear_bwd_plain(q, cot, hw)) \
+            <= GRAD_RTOL
+    grid = _rand(dev, 9, 8, 64, seed=23)
+    x = pts.T.repeat(3, 1).contiguous()
+    cot = _rand(dev, 9, n, 8, lo=-1, hi=1, seed=24)
+    for got, want in zip(po.plane_linear_bwd(grid, x, cot, 3),
+                         po.plane_linear_bwd_plain(grid, x, cot, 3)):
+        assert _rel(got, want) <= GRAD_RTOL

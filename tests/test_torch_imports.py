@@ -42,7 +42,11 @@ def test_source_imports_no_jax(path):
 def test_import_loads_no_jax_module():
     code = ("import sys, lidar4d_tpu_torch, lidar4d_tpu_torch.models, lidar4d_tpu_torch.sim, "
             "lidar4d_tpu_torch.interop, lidar4d_tpu_torch.cli.config, "
-            "lidar4d_tpu_torch.ops.hash_onehot, lidar4d_tpu_torch.ops.plane_onehot; "
+            "lidar4d_tpu_torch.ops.hash_onehot, lidar4d_tpu_torch.ops.plane_onehot, "
+            "lidar4d_tpu_torch.ops.chamfer, lidar4d_tpu_torch.ops.rays, "
+            "lidar4d_tpu_torch.train.train_step, lidar4d_tpu_torch.train.flow_cache, "
+            "lidar4d_tpu_torch.data.synthetic, lidar4d_tpu_torch.data.kitti360, "
+            "lidar4d_tpu_torch.utils.pointcloud; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lidar4d_tpu', 'cv2', 'imageio')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -6,6 +6,7 @@ version, and the JAX package runs its gather path (its Pallas kernels engage
 only on a TPU), so these hold the algorithms to each other in float32.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -222,3 +223,158 @@ def test_pano_rays_and_back_projection_match_jax():
     inten = rng.uniform(size=(H, W))
     np.testing.assert_array_equal(tpano.pano_to_lidar_with_intensities(pano, inten, fov),
                                   jpano.pano_to_lidar_with_intensities(pano, inten, fov))
+
+
+# ------------------------------------------------------- backward contracts
+# Each gradient of the port's autograd.Functions (plain versions on the CPU)
+# against jax.grad of the reference's float32 oracles (`hash_enc.hash_encode`
+# + the Lagrange contraction, `grid_sample_2d`, an explicit float32 lerp).
+# Same gathers and weights, scattered in another order: 1e-5 of the scale.
+GRAD_TOL = 1e-5
+
+
+def _rel_close(got, want, tol=GRAD_TOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(np.abs(want).max(), 1e-30)
+    assert np.abs(got - want).max() / scale <= tol
+
+
+def _cot(seed, shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("key", sorted(SPECS))
+def test_hash_encode_fact_backward_matches_jax(key):
+    js, ts = _specs(key)
+    x = _points(30, 300, js.n_dims)
+    table = _table(31, js.n_rows, js.n_features)
+    cot = _cot(32, (300, js.n_output_dims))
+    want_dt, want_dx = jax.grad(lambda t, xx: jnp.sum(jhe.hash_encode(js, t, xx) * cot),
+                                argnums=(0, 1))(jnp.asarray(table), jnp.asarray(x))
+    tt = torch.from_numpy(table).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    (tho.hash_encode_auto(ts, tt, tx) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tt.grad, want_dt)
+    assert torch.isnan(tx.grad).all()                     # poison, not a silent zero
+    tt.grad = tx.grad = None
+    (tho.hash_encode_onehot_fact(ts, tt, tx) * 0.0).sum().backward()
+    assert not tx.grad.any() and not tt.grad.any()        # a zero cotangent stays zero
+    # coord_grad=True: the plain path, differentiable in x
+    tt.grad = tx.grad = None
+    (tho.hash_encode_auto(ts, tt, tx, coord_grad=True) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tt.grad, want_dt)
+    _rel_close(tx.grad, want_dx, 1e-4)
+
+
+def _jax_interp(js, table, x, w):
+    """interpT(hash_encode(table, x)) with explicit Lagrange weights w [B]."""
+    g = jhe.hash_encode(js, table, x)
+    b = w.shape[0]
+    g = g.reshape(x.shape[0], js.n_levels, b, js.n_features // b)
+    return jnp.einsum("nlbf,b->nlf", g, w).reshape(x.shape[0], -1)
+
+
+@pytest.mark.parametrize("key", ["3d_hashed", "3d_mixed", "2d_mixed"])
+def test_hash_encode_folded_backward_matches_jax(key):
+    js, ts = _specs(key)
+    nb = 2
+    x = _points(33, 300, js.n_dims)
+    table = _table(34, js.n_rows, js.n_features)
+    w = the.lagrange_weights(0.37, nb)
+    cot = _cot(35, (300, js.n_levels * js.n_features // nb))
+    want = jax.grad(lambda t: jnp.sum(_jax_interp(js, t, jnp.asarray(x), jnp.asarray(w)) * cot))(
+        jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    (tho.hash_encode_folded(ts, tt, tx, tw) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tt.grad, want)
+    assert torch.isnan(tx.grad).all() and torch.isnan(tw.grad).all()
+
+
+def test_hash_encode_fact_multi_folded_backward_matches_jax():
+    """Variant 0's table alone is trained; tables_ng get no gradient; the x
+    and w poison is gated per variant (variant 1's cotangent is zero here,
+    as for the detached warped variants of the density)."""
+    js, ts = _specs("2d_mixed")
+    nb = 2
+    xs = np.stack([_points(40 + v, 200, 2) for v in range(3)])
+    table = _table(44, js.n_rows, js.n_features)
+    tables_ng = np.stack([_table(45 + v, js.n_rows, js.n_features) for v in range(2)])
+    ws = np.stack([the.lagrange_weights(t, nb) for t in (0.5, 0.6, 0.4)])
+    cot = _cot(47, (3, 200, js.n_levels * js.n_features // nb))
+    cot[1] = 0.0
+    want = jax.grad(lambda t: jnp.sum(
+        _jax_interp(js, t, jnp.asarray(xs[0]), jnp.asarray(ws[0])) * cot[0]))(jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_()
+    tng = torch.from_numpy(tables_ng).requires_grad_()
+    txs = torch.from_numpy(xs).requires_grad_()
+    tws = torch.from_numpy(ws).requires_grad_()
+    out = tho.hash_encode_fact_multi_folded(ts, tt, tng, txs, tws)
+    for v in range(3):
+        np.testing.assert_allclose(
+            out[v].detach().numpy(),
+            np.asarray(_jax_interp(js, jnp.asarray(table if v == 0 else tables_ng[v - 1]),
+                                   jnp.asarray(xs[v]), jnp.asarray(ws[v]))),
+            rtol=1e-5, atol=1e-5)
+    (out * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tt.grad, want)
+    assert tng.grad is None
+    for v, dead in enumerate([False, True, False]):
+        assert (not txs.grad[v].any()) if dead else torch.isnan(txs.grad[v]).all()
+        assert (not tws.grad[v].any()) if dead else torch.isnan(tws.grad[v]).all()
+
+
+def _jax_planes(grid, pts):
+    return jnp.stack([jgs.grid_sample_2d(g, p).T for g, p in zip(grid, pts)])
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (5, 13)])
+def test_plane_bilinear_backward_matches_jax(hw):
+    rng = np.random.default_rng(50)
+    grid = rng.uniform(0.1, 0.5, (3, 8, *hw)).astype(np.float32)
+    pts = rng.uniform(-0.1, 1.1, (3, 333, 2)).astype(np.float32)
+    cot = _cot(51, (3, 8, 333))
+    want_g, want_p = jax.grad(lambda g, p: jnp.sum(_jax_planes(g, p) * cot), argnums=(0, 1))(
+        jnp.asarray(grid), jnp.asarray(pts))
+    tg = torch.from_numpy(grid).requires_grad_()
+    tp = torch.from_numpy(pts).requires_grad_()
+    (tpo.plane_bilinear(tg, tp) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tg.grad, want_g)
+    assert not tp.grad.any()                              # a silent zero by contract
+    tg.grad = tp.grad = None
+    (tpo.plane_bilinear(tg, tp, coord_grad=True) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tg.grad, want_g)
+    _rel_close(tp.grad, want_p, 1e-4)
+
+
+def _jax_lerp(grid, x, lead):
+    x = jnp.concatenate([jax.lax.stop_gradient(x[:lead]), x[lead:]], axis=0)
+    w = grid.shape[2]
+    u = jnp.clip(x, 0.0, 1.0) * (w - 1)
+    j0 = jnp.clip(jnp.floor(u).astype(jnp.int32), 0, w - 1)
+    j1 = jnp.minimum(j0 + 1, w - 1)
+    f = (u - j0.astype(jnp.float32))[..., None]
+    g0 = jnp.take_along_axis(grid, j0[:, None, :], axis=2).transpose(0, 2, 1)
+    g1 = jnp.take_along_axis(grid, j1[:, None, :], axis=2).transpose(0, 2, 1)
+    return (1.0 - f) * g0 + f * g1
+
+
+@pytest.mark.parametrize("lead", [0, 3])
+def test_plane_linear_backward_matches_jax(lead):
+    rng = np.random.default_rng(52 + lead)
+    grid = rng.uniform(0.1, 1.0, (9, 8, 32)).astype(np.float32)
+    x = rng.uniform(-0.1, 1.1, (9, 301)).astype(np.float32)
+    cot = _cot(53, (9, 301, 8))
+    want_g, want_x = jax.grad(lambda g, xx: jnp.sum(_jax_lerp(g, xx, lead) * cot),
+                              argnums=(0, 1))(jnp.asarray(grid), jnp.asarray(x))
+    tg = torch.from_numpy(grid).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    (tpo.plane_linear(tg, tx, coord_grad_lead=lead) * torch.from_numpy(cot)).sum().backward()
+    _rel_close(tg.grad, want_g)
+    _rel_close(tx.grad, want_x)
+    assert not tx.grad[:lead].any()
+    dg, dx = tpo.plane_linear_bwd(tg.detach(), tx.detach(), torch.from_numpy(cot), lead)
+    np.testing.assert_array_equal(dg.numpy(), tg.grad.numpy())
+    np.testing.assert_array_equal(dx.numpy(), tx.grad.numpy())
