@@ -25,20 +25,41 @@ Phases (each prints a start line):
   train-kernels  hold every forward and backward kernel against its plain
            version at the train step's per-call sizes (131,072 and 262,144
            points along the step's 1,024 training rays, the flow loss's
-           cloud and ground points), and time kernel, plain version and the
-           PyTorch call with the same function;
+           cloud and ground points), and plane_bilinear_vjp at the sizes of
+           Planes4D.__call__ on the fine call's 262,144 points (the four
+           scales' time planes [3, 8, 8, S], a per-ray time); time kernel,
+           plain version and the PyTorch call with the same function;
   train    one flagship train step on the card against the same step on the
            CPU (O(0.1-1) tables, float32 MLPs, fewer rays): loss, every
-           gradient leaf, post-step parameters; then 2 warm-up and 5 timed
-           flagship steps (1,024 rays, 128 + 256 samples, flow loss) with
-           their losses, ms/step, train rays/s, peak memory and kernel
-           launches per step; and one step under torch.profiler.
+           gradient leaf, post-step parameters, once with hierarchical
+           sampling and once with uniform sampling (no sample_pdf, so the
+           gap is the kernels' and the card's float32 rounding alone); then
+           2 warm-up and 5 timed flagship steps (1,024 rays, 128 + 256
+           samples, flow loss) with their losses, ms/step, train rays/s,
+           peak memory and kernel launches per step; and one step under
+           torch.profiler;
+  encoders Planes4D.__call__ of the flagship field on 262,144 points warped
+           by the flagship flow net, at a per-ray time that includes the
+           frame times 0 and 1: forward, then backward into every plane and
+           every flow-net parameter, on the kernels and again on the plain
+           versions on the card, compared;
+  classic  under hash_onehot.ONEHOT_VARIANT = "classic" (the reference's
+           A/B switch): the classic route's hash_grid cases at the train
+           step's per-call sizes, one classic step against one fact step on
+           the card (uniform sampling, float32 MLPs), then 1 warm-up and 3
+           timed flagship steps with ms/step, losses and launches per step.
 
-The line before the last is a JSON object with each kernel's numbers, taken
-at the train step's per-call sizes: ms, plain_ms, library_ms and bound_ms are
-sums over the calls of one flagship train step, and launches the count over
-the 7 train steps. The last line is {"ok": true, "device": {...}}. Any
-failure exits non-zero before either is printed. Imports nothing of JAX.
+The kernels line (the line before the device's name) is a JSON object with
+each kernel's numbers. For the six kernels of the train step they are taken
+at its per-call sizes: ms, plain_ms, library_ms and bound_ms are sums over
+the calls of one flagship train step, and launches the count over the 7
+train steps. For plane_bilinear_vjp they are sums over the four launches of
+one Planes4D.__call__ backward, and launches the encoders phase's count.
+The classic phase's own line gives rows 1-2 (the classic one-hot route):
+hash_grid_fwd and hash_grid_bwd summed over one classic step, and their
+launches over the classic steps. The last line is {"ok": true, "device":
+{...}}. Any failure exits non-zero before either is printed. Imports
+nothing of JAX.
 """
 
 import contextlib
@@ -93,6 +114,35 @@ STEP_RTOL = 5e-6
 STEP_GRAD_RTOL = {"flow": 1e-2, "hash": 2e-2, "planes": 3e-2, "sigma": 4e-3,
                   "intensity": 4e-3, "raydrop": 1e-3}
 SIGN_FLOOR = 10                # post-step params compared where |g| > this x tol x max|g|
+UNIFORM_STEPS = 128            # uniform sampling of the checks below
+# The checks below use uniform sampling and float32 MLPs; tolerances are
+# relative, of the loss and of each gradient leaf by group, about 10x the
+# gaps measured on an H100 (PERF.md). Card vs CPU, uniform sampling: loss
+# 2.8e-7; gradients flow 1.4e-3, hash 3.8e-3, planes 1.8e-2, sigma 1.1e-3,
+# intensity 9.0e-4, raydrop 3.8e-4. The same gap with every kernel swapped
+# for its plain version on the card, so it is the two devices' float32
+# arithmetic, not the kernels: it appears across the MLPs' backward, whose
+# ReLU gates can open on one device and not on the other where a
+# pre-activation sits within float32 rounding of 0.
+UNIFORM_STEP_RTOL = 3e-6
+UNIFORM_STEP_GRAD_RTOL = {"flow": 1.5e-2, "hash": 4e-2, "planes": 0.2, "sigma": 1.2e-2,
+                          "intensity": 1e-2, "raydrop": 4e-3}
+# the card's kernels vs the card's plain versions over one step: loss 9.3e-8;
+# gradients flow 7.2e-5, hash 6.6e-7, planes 1.9e-6, sigma 2.1e-7,
+# intensity 3.2e-7, raydrop 1.5e-7. This is the check that holds the
+# kernels, the backward ones included, inside a whole step.
+KERNEL_STEP_RTOL = 1e-6
+KERNEL_STEP_GRAD_RTOL = {"flow": 8e-4, "hash": 8e-6, "planes": 2e-5, "sigma": 3e-6,
+                         "intensity": 4e-6, "raydrop": 2e-6}
+# classic vs fact on the card: loss 0; gradients at most 3.3e-7 over two
+# runs (flow 1.9e-7 then 3.3e-7, every other group <= 2.3e-7): the order of
+# float32 sums alone (the fold, and atomics that add in another order)
+CLASSIC_STEP_RTOL = 1e-6
+CLASSIC_GRAD_RTOL = {"flow": 4e-6, "hash": 4e-6, "planes": 4e-6, "sigma": 4e-6,
+                     "intensity": 4e-6, "raydrop": 4e-6}
+CLASSIC_WARMUP, CLASSIC_TIMED = 1, 3
+FRAME_TIMES = 16               # rays whose time is a frame time k / (num_frames - 1)
+ENCODER_FLOW_T = 0.3           # the flow net's time in the encoders phase
 
 
 def phase(name):
@@ -134,14 +184,16 @@ def chunk_points(rays_o, rays_d, near, far, bound, n_samples):
     return ((torch.clamp(xyz, -bound, bound) + bound) / (2 * bound)).reshape(-1, 3)
 
 
-def kernel_cases(field, params, gen, pts):
+def kernel_cases(field, params, gen, pts, classic=False):
     """(kernel, label, run, plain, library, bytes, flops) at every flagship
     shape, with the variant / plane counts of one density call on pts [N, 3].
 
     The hash encodes take pts clamped to [0, 1], as the field clamps them; the
     planes take pts as they are. The hash tables are the field's; the 1-D
     dynamic planes are drawn at random, since the init's time planes are ones
-    and would hide an index fault."""
+    and would hide an index fault. classic=True gives the hash encodes of the
+    classic route alone (ONEHOT_VARIANT "classic": the flow grid and the
+    dynamic planes at F = 8, one launch per dynamic variant)."""
     from lidar4d_tpu_torch.ops import hash_onehot as ho
     from lidar4d_tpu_torch.ops import plane_onehot as po
     from lidar4d_tpu_torch.ops.hash_enc import lagrange_weights
@@ -173,16 +225,28 @@ def kernel_cases(field, params, gen, pts):
     flow = field.flow_net
     w = torch.from_numpy(lagrange_weights(0.3, flow.num_basis)).to(dev)
     fp = flow.n_features_per_level // flow.num_basis
-    hash_case("flow grid 3D L=4 F'=2 (folded)", ho._folded_spec(flow.grid_spec, flow.num_basis),
-              ho._fold_table(params["flow"]["grid"], w, fp)[None], x01[None])
+    if classic:
+        hash_case("flow grid 3D L=4 F=8", flow.grid_spec, params["flow"]["grid"][None],
+                  x01[None])
+    else:
+        hash_case("flow grid 3D L=4 F'=2 (folded)",
+                  ho._folded_spec(flow.grid_spec, flow.num_basis),
+                  ho._fold_table(params["flow"]["grid"], w, fp)[None], x01[None])
     for p in range(3):
         spec = enc.dynamic_spec(p)
         tabs = torch.stack([enc._blended_table(params["hash"], p, t) for t in (0.3, 0.32, 0.28)])
+        if classic:
+            for v in range(3):
+                hash_case(f"dynamic plane {p} 2D L=6 F=8 rows {spec.table_sizes[0]} variant {v}",
+                          spec, tabs[v:v + 1], x01[None, :, list(pairs[p])])
+            continue
         folded = torch.stack([ho._fold_table(t, w, spec.n_features // enc.num_basis)
                               for t in tabs])
         hash_case(f"dynamic plane {p} 2D L=6 F'=2 rows {spec.table_sizes[0]} V=3 (folded)",
                   ho._folded_spec(spec, enc.num_basis), folded,
                   x01[:, list(pairs[p])].expand(3, -1, -1))
+    if classic:
+        return cases
 
     for si, planes_s in enumerate(params["planes"]):
         group = [planes_s[ci] for ci in (0, 1, 3)]
@@ -311,7 +375,7 @@ def check_case(case, summary, main, iters, plain_iters):
     largest magnitude), time kernel, plain version and library call, and add
     the case to `summary` (times and bound only when `main`)."""
     name, label, run, plain, library, nb, flops = case
-    rtol = GRAD_RTOL if name.endswith("_bwd") else KERNEL_RTOL
+    rtol = GRAD_RTOL if name.endswith(("_bwd", "_vjp")) else KERNEL_RTOL
     got, want = run(), plain()
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     torch.cuda.synchronize()
@@ -341,10 +405,11 @@ def check_case(case, summary, main, iters, plain_iters):
             s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
 
 
-def backward_cases(field, params, gen, pts):
+def backward_cases(field, params, gen, pts, classic=False):
     """(kernel, label, run, plain, library, bytes, flops) of every backward
     kernel at every flagship shape, with the variant / plane counts of one
-    density call on pts [N, 3] of a train step and random cotangents."""
+    density call on pts [N, 3] of a train step and random cotangents;
+    classic=True gives the classic route's hash encodes alone."""
     from lidar4d_tpu_torch.ops import hash_onehot as ho
     from lidar4d_tpu_torch.ops import plane_onehot as po
 
@@ -376,12 +441,21 @@ def backward_cases(field, params, gen, pts):
     hash_case(f"hashed static plane {reso}^2 x3", planes._hash_spec(reso),
               torch.stack([x01[:, list(c)] for c in pairs]), 3)
     flow = field.flow_net
-    hash_case("flow grid 3D L=4 F'=2 (folded)", ho._folded_spec(flow.grid_spec, flow.num_basis),
-              x01[None], 1)
+    if classic:
+        hash_case("flow grid 3D L=4 F=8", flow.grid_spec, x01[None], 1)
+    else:
+        hash_case("flow grid 3D L=4 F'=2 (folded)",
+                  ho._folded_spec(flow.grid_spec, flow.num_basis), x01[None], 1)
     for p in range(3):
         spec = enc.dynamic_spec(p)
-        hash_case(f"dynamic plane {p} 2D L=6 F'=2 rows {spec.table_sizes[0]} variant 0 of 3",
-                  ho._folded_spec(spec, enc.num_basis), x01[None, :, list(pairs[p])], 3)
+        if classic:
+            hash_case(f"dynamic plane {p} 2D L=6 F=8 rows {spec.table_sizes[0]} variant 0",
+                      spec, x01[None, :, list(pairs[p])], 1)
+        else:
+            hash_case(f"dynamic plane {p} 2D L=6 F'=2 rows {spec.table_sizes[0]} variant 0 of 3",
+                      ho._folded_spec(spec, enc.num_basis), x01[None, :, list(pairs[p])], 3)
+    if classic:
+        return cases
 
     aten_gs_bwd = torch.ops.aten.grid_sampler_2d_backward
     for planes_s in params["planes"]:
@@ -420,16 +494,58 @@ def backward_cases(field, params, gen, pts):
     return cases
 
 
-def flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward):
+def per_ray_times(n_rays, samples, num_frames, gen, dev):
+    """[n_rays * samples, 1] per-sample times, one per ray (the samples of a
+    ray share their time): U(0, 1), and the first FRAME_TIMES rays at frame
+    times k / (num_frames - 1), 0 and 1 among them, where the time planes'
+    v = t * (T - 1) can be an exact integer."""
+    t = torch.rand(n_rays, generator=gen, device=dev)
+    k = torch.linspace(0, num_frames - 1, FRAME_TIMES, device=dev).round()
+    t[:FRAME_TIMES] = k / (num_frames - 1)
+    return t.repeat_interleave(samples)[:, None]
+
+
+def vjp_cases(params, gen, pts, t):
+    """plane_bilinear_vjp cases of one Planes4D.__call__ backward on pts
+    [N, 3] in [0, 1] at per-sample times t [N, 1]: per scale one launch over
+    the three time planes [3, C, T, S] (drawn from U(0.5, 1.5): the init's
+    ones would give a zero coordinate gradient)."""
+    from lidar4d_tpu_torch.ops import plane_onehot as po
+
+    dev = pts.device
+    n = pts.shape[0]
+    q = torch.stack([torch.cat([pts[:, [c]], t], -1) for c in range(3)]).contiguous()
+    lib_grid = (2.0 * q - 1.0)[:, None]                                   # [P, 1, N, 2]
+    aten_gs_bwd = torch.ops.aten.grid_sampler_2d_backward
+    cases = []
+    for planes_s in params["planes"]:
+        c, t_res, s = planes_s[2].shape
+        grid = 0.5 + torch.rand(3, c, t_res, s, generator=gen, device=dev)
+        cot = torch.randn(3, c, n, generator=gen, device=dev)
+        cases.append((
+            "plane_bilinear_vjp", f"time planes {tuple(grid.shape)}, per-ray t",
+            lambda g=grid, cc=cot: po.plane_bilinear_vjp(g, q, cc),
+            lambda g=grid, cc=cot: po.plane_bilinear_vjp_plain(g, q, cc),
+            lambda g=grid, cc=cot[:, :, None, :]: aten_gs_bwd(
+                cc, g, lib_grid, 0, 1, True, [True, True]),
+            nbytes(grid, q, cot, grid, q), 24 * cot.numel()))
+    return cases
+
+
+def flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward, classic=False):
     """The flow loss's two flow-net encodes (a frame's cloud and its ground
-    points, each [N, 3] in world units): forward or backward cases."""
+    points, each [N, 3] in world units): forward or backward cases, folded
+    or (classic) at F = 8."""
     from lidar4d_tpu_torch.ops import hash_onehot as ho
     from lidar4d_tpu_torch.ops.hash_enc import lagrange_weights
 
     flow = field.flow_net
-    spec = ho._folded_spec(flow.grid_spec, flow.num_basis)
-    w = torch.from_numpy(lagrange_weights(0.3, flow.num_basis)).to(flow_pts.device)
-    tables = ho._fold_table(params["flow"]["grid"], w, spec.n_features)[None].contiguous()
+    if classic:
+        spec, tables = flow.grid_spec, params["flow"]["grid"][None]
+    else:
+        spec = ho._folded_spec(flow.grid_spec, flow.num_basis)
+        w = torch.from_numpy(lagrange_weights(0.3, flow.num_basis)).to(flow_pts.device)
+        tables = ho._fold_table(params["flow"]["grid"], w, spec.n_features)[None].contiguous()
     levels = ho._level_table(spec, flow_pts.device)
     cases = []
     for label, pts in (("flow loss cloud", flow_pts), ("flow loss ground", ground_pts)):
@@ -437,7 +553,7 @@ def flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward):
         xs = torch.clamp((pts + bound) / (2 * bound), 0.0, 1.0)[None].contiguous()
         n = xs.shape[1]
         flops = 2 * n * spec.n_levels * 8 * spec.n_features
-        label = f"{label}: flow grid 3D L=4 F'=2 (folded)"
+        label = f"{label}: flow grid 3D L=4 " + ("F=8" if classic else "F'=2 (folded)")
         if backward:
             cot = torch.randn(1, n, spec.n_output_dims, generator=gen, device=xs.device)
             cases.append(("hash_grid_bwd", label,
@@ -541,12 +657,15 @@ def train_field(field, scale):
     return LiDAR4DField(cfg, device=field.device)
 
 
-def check_train_kernels(field, params, ds, cache, opt, dev):
+def check_train_kernels(field, params, ds, cache, opt, dev, classic=False):
     """Every forward and backward kernel against its plain version at the
     train step's per-call sizes: the coarse and fine density calls
     (TRAIN_RAYS rays of a train frame x num_coarse / num_fine samples) and
-    the flow loss's two flow-net calls. Returns the per-kernel summary,
-    sums over the calls of one train step."""
+    the flow loss's two flow-net calls; and plane_bilinear_vjp at the fine
+    call's points with a per-ray time. Returns the per-kernel summary, sums
+    over the calls of one train step (of Planes4D.__call__'s backward for
+    plane_bilinear_vjp). classic=True: the classic route's hash encodes
+    alone."""
     from lidar4d_tpu_torch.ops.rays import get_lidar_rays
 
     gen = torch.Generator(device=dev)
@@ -565,33 +684,43 @@ def check_train_kernels(field, params, ds, cache, opt, dev):
                                cfg.bound, samples)
             print(f"  {pts.shape[0]} points: {TRAIN_RAYS} training rays x {samples} samples",
                   flush=True)
-            for case in kernel_cases(field, params, gen, pts) + backward_cases(
-                    field, params, gen, pts):
+            cases = kernel_cases(field, params, gen, pts, classic) + backward_cases(
+                field, params, gen, pts, classic)
+            if samples == opt.num_fine and not classic:
+                t = per_ray_times(TRAIN_RAYS, samples, cfg.num_frames, gen, dev)
+                cases += vjp_cases(params, gen, pts, t)
+            for case in cases:
                 check_case(case, summary, True, 10, 2)
             torch.cuda.empty_cache()
         print(f"  flow loss: {flow_pts.shape[0]} cloud and {ground_pts.shape[0]} ground points "
               f"(frame {fi})", flush=True)
         for backward in (False, True):
-            for case in flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward):
+            for case in flow_loss_cases(field, params, gen, flow_pts, ground_pts, backward,
+                                        classic):
                 check_case(case, summary, True, 10, 2)
     return finish(summary)
 
 
-def launches_per_step(field):
+def launches_per_step(field, classic=False):
     """Kernel launches of one flagship train step, from the field's shape:
     per density call (two per step) the static hash, the hashed static
-    planes (one launch for the three), the flow grid and the three dynamic
-    hash planes on hash_grid_*, each dense static scale on plane_bilinear_*,
-    each scale's time planes on plane_linear_*; plus the flow loss's two
-    flow-grid encodes. Backward launches mirror the forward ones."""
+    planes (one launch for the three), the flow grid and the dynamic hash
+    planes on hash_grid_* (fact: one launch for the three variants of a
+    plane; classic: one per variant forward, variant 0 alone backward), each
+    dense static scale on plane_bilinear_*, each scale's time planes on
+    plane_linear_*; plus the flow loss's two flow-grid encodes, and no
+    plane_bilinear_vjp."""
     planes = field.planes_encoder
     n_scales = len(planes.multiscale_res)
     hashed = sum(planes._static_hashed(si, planes._scale_reso(sc))
                  for si, sc in enumerate(planes.multiscale_res))
-    per_call = {"hash_grid": 1 + hashed + 1 + 3, "plane_bilinear": n_scales - hashed,
-                "plane_linear": n_scales}
-    extra = {"hash_grid": 2, "plane_bilinear": 0, "plane_linear": 0}
-    return {f"{k}_{d}": 2 * v + extra[k] for k, v in per_call.items() for d in ("fwd", "bwd")}
+    per_call = {"hash_grid_fwd": 2 + hashed + (9 if classic else 3),
+                "hash_grid_bwd": 2 + hashed + 3,
+                "plane_bilinear_fwd": n_scales - hashed, "plane_bilinear_bwd": n_scales - hashed,
+                "plane_linear_fwd": n_scales, "plane_linear_bwd": n_scales,
+                "plane_bilinear_vjp": 0}
+    extra = {"hash_grid_fwd": 2, "hash_grid_bwd": 2}
+    return {k: 2 * v + extra.get(k, 0) for k, v in per_call.items()}
 
 
 def leaf_groups(params):
@@ -601,78 +730,125 @@ def leaf_groups(params):
     return [k for k in sorted(params) for _ in tree_leaves(params[k])]
 
 
-def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
-    """One step of the flagship field on CHECK_RAYS rays, card vs CPU, from
-    the same O(0.1-1) parameters, float32 MLPs and the same draws: the loss,
-    every gradient leaf and the post-step parameters."""
-    from lidar4d_tpu_torch.interop import tree_to_torch
-    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+@contextlib.contextmanager
+def onehot_variant(variant):
+    """Run under hash_onehot.ONEHOT_VARIANT = variant, restored after."""
+    from lidar4d_tpu_torch.ops import hash_onehot as ho
+
+    saved = ho.ONEHOT_VARIANT
+    ho.ONEHOT_VARIANT = variant
+    try:
+        yield
+    finally:
+        ho.ONEHOT_VARIANT = saved
+
+
+def step_grads(field, signal, ds, cache, sampling, draws=None):
+    """One step's metrics, gradient leaves and post-step leaves (on the host)
+    from the numpy params `signal` on the field's device, with `draws` (the
+    step's own when None). Returns (metrics, grads, params, draws)."""
+    from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
     from lidar4d_tpu_torch.train.losses import LossConfig
-    from lidar4d_tpu_torch.interop import tree_leaves
     from lidar4d_tpu_torch.train.train_step import (
         flow_cache_to_device, init_train_state, make_train_step)
 
-    signal = signal_params(params)
     loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
                           num_frames=field.cfg.num_frames, iters=ITERS)
-    runs = {}
-    cpu_field = LiDAR4DField(field.cfg, device="cpu")
-    draws = None
-    with mlp_dtype(torch.float32):
-        for d, f in (("cpu", cpu_field), ("cuda", field)):
-            state, optim = init_train_state(f, lr=LR, iters=ITERS,
-                                            params=tree_to_torch(signal, f.device))
-            step = make_train_step(f, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar,
-                                   fov_lidar=FOV, num_rays=CHECK_RAYS, patch_size=1,
-                                   num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
-            if draws is None:
-                draws = step.draw()
-            dd = {k: v.to(f.device) if torch.is_tensor(v) else v for k, v in draws.items()}
-            fc = flow_cache_to_device(cache, f.device)
-            grads, metrics = step.grads(state.params, ds.frame(0), fc, dd, 0)
-            optim.step(state.params, grads, state.opt_state)
-            runs[d] = ({k: float(v) for k, v in metrics.items()},
-                       [None if g is None else g.cpu() for g in grads],
-                       [p.detach().cpu() for p in tree_leaves(state.params)])
-    (m_cpu, g_cpu, p_cpu), (m_gpu, g_gpu, p_gpu) = runs["cpu"], runs["cuda"]
-    for k in m_cpu:
-        rel = abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
-        print(f"  card vs cpu {k}: {m_gpu[k]:.6f} vs {m_cpu[k]:.6f}, rel {rel:.3e} "
-              f"(tolerance {STEP_RTOL:g})", flush=True)
-        if not (np.isfinite(m_gpu[k]) and rel <= STEP_RTOL):
-            raise AssertionError(f"card vs cpu step {k}: {rel} > {STEP_RTOL}")
-    worst, worst_step, failures = {}, 0.0, []
+    state, optim = init_train_state(field, lr=LR, iters=ITERS,
+                                    params=tree_to_torch(signal, field.device))
+    step = make_train_step(field, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV,
+                           num_rays=CHECK_RAYS, patch_size=1, seed=SEED, **sampling)
+    draws = step.draw() if draws is None else draws
+    dd = {k: v.to(field.device) if torch.is_tensor(v) else v for k, v in draws.items()}
+    grads, metrics = step.grads(state.params, ds.frame(0), flow_cache_to_device(cache, field.device),
+                                dd, 0)
+    optim.step(state.params, grads, state.opt_state)
+    return ({k: float(v) for k, v in metrics.items()},
+            [None if g is None else g.cpu() for g in grads],
+            [p.detach().cpu() for p in tree_leaves(state.params)], draws)
+
+
+def compare_steps(what, field, signal, run_a, run_b, rtol, grad_rtol, post_step):
+    """Hold step run_a against run_b (each from `step_grads`): every metric
+    within rtol, every gradient leaf within grad_rtol[group] of its largest
+    magnitude and, with post_step, the post-step parameters where |g| is
+    clear of that tolerance (Adam's first step is lr x sign(g))."""
+    from lidar4d_tpu_torch.interop import tree_leaves
+
+    (m_a, g_a, p_a, _), (m_b, g_b, p_b, _) = run_a, run_b
+    failures = []
+    for k in m_b:
+        rel = abs(m_a[k] - m_b[k]) / max(abs(m_b[k]), 1e-30)
+        print(f"  {what} {k}: {m_a[k]:.6f} vs {m_b[k]:.6f}, rel {rel:.3e} (tolerance {rtol:g})",
+              flush=True)
+        if not (np.isfinite(m_a[k]) and rel <= rtol):
+            failures.append(f"{what} {k}: {rel} > {rtol}")
+    worst, worst_step = {}, 0.0
     labels = tree_leaves(field.param_group_labels(signal))
-    p0 = tree_leaves(signal)
     for i, (group, lb, a, b, pa, pb, init) in enumerate(zip(
-            leaf_groups(signal), labels, g_gpu, g_cpu, p_gpu, p_cpu, p0)):
+            leaf_groups(signal), labels, g_a, g_b, p_a, p_b, tree_leaves(signal))):
         if b is None or lb == "unet":
             if a is not None and a.abs().max() > 0:
-                raise AssertionError(f"leaf {i} ({group}): card has a gradient, cpu none")
+                failures.append(f"{what} leaf {i} ({group}): a gradient on one side alone")
             continue
         scale = b.abs().max().item()
         if scale == 0:
             continue
         rel = (a - b).abs().max().item() / scale
-        tol = STEP_GRAD_RTOL[group]
+        tol = grad_rtol[group]
         worst[group] = max(worst.get(group, 0.0), rel)
         if not (torch.isfinite(a).all() and rel <= tol):
-            failures.append(f"card vs cpu grad leaf {i} ({group}): {rel} > {tol}")
+            failures.append(f"{what} grad leaf {i} ({group}): {rel} > {tol}")
+        if not post_step:
+            continue
         step_size = LR * (0.1 if lb == "head" else 1.0)
         sure = b.abs() > SIGN_FLOOR * tol * scale
         moved = (pa - pb)[sure].abs().max().item() if sure.any() else 0.0
         worst_step = max(worst_step, moved / step_size)
         if moved > 1e-3 * step_size:
-            failures.append(f"post-step leaf {i} ({group}) differs by {moved}")
+            failures.append(f"{what} post-step leaf {i} ({group}) differs by {moved}")
         if (pa - torch.as_tensor(init)).abs().max().item() > step_size * (1 + 1e-3):
-            failures.append(f"post-step leaf {i} ({group}) moved more than lr")
-    print("  card vs cpu gradients, max relative gap by group: "
+            failures.append(f"{what} post-step leaf {i} ({group}) moved more than lr")
+    print(f"  {what} gradients, max relative gap by group: "
           + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
-          + f" (tolerances {STEP_GRAD_RTOL}); post-step params where |g| > {SIGN_FLOOR} x "
-          f"tolerance x max|g|: max gap {worst_step:.3e} of lr x group multiplier "
-          "(tolerance 1e-3)", flush=True)
+          + f" (tolerances {grad_rtol})" + (
+              f"; post-step params where |g| > {SIGN_FLOOR} x tolerance x max|g|: max gap "
+              f"{worst_step:.3e} of lr x group multiplier (tolerance 1e-3)" if post_step else ""),
+          flush=True)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
+    """One step of the flagship field on CHECK_RAYS rays from the same
+    O(0.1-1) parameters, float32 MLPs and the same draws: the loss, every
+    gradient leaf and the post-step parameters of the card's step against
+    the CPU's, with the flagship's hierarchical sampling and with
+    UNIFORM_STEPS uniform samples (no sample_pdf); then, uniform, the card's
+    step on its plain versions against the CPU's (printed: the same gap
+    means the kernels take no part in it) and the card's step on its kernels
+    against the same step on its plain versions."""
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+
+    signal = signal_params(params)
+    cpu_field = LiDAR4DField(field.cfg, device="cpu")
+    hierarchical = dict(num_coarse=opt.num_coarse, num_fine=opt.num_fine)
+    uniform = dict(num_steps=UNIFORM_STEPS)
+    with mlp_dtype(torch.float32):
+        cpu = step_grads(cpu_field, signal, ds, cache, hierarchical)
+        card = step_grads(field, signal, ds, cache, hierarchical, draws=cpu[3])
+        compare_steps("card vs cpu", field, signal, card, cpu, STEP_RTOL, STEP_GRAD_RTOL,
+                      post_step=True)
+        cpu = step_grads(cpu_field, signal, ds, cache, uniform)
+        card = step_grads(field, signal, ds, cache, uniform, draws=cpu[3])
+        compare_steps("card vs cpu, uniform sampling", field, signal, card, cpu,
+                      UNIFORM_STEP_RTOL, UNIFORM_STEP_GRAD_RTOL, post_step=True)
+        with plain_kernels():
+            plain = step_grads(field, signal, ds, cache, uniform, draws=cpu[3])
+        compare_steps("card plain versions vs cpu, uniform sampling", field, signal, plain, cpu,
+                      UNIFORM_STEP_RTOL, UNIFORM_STEP_GRAD_RTOL, post_step=True)
+        compare_steps("card kernels vs card plain versions, uniform sampling", field, signal,
+                      card, plain, KERNEL_STEP_RTOL, KERNEL_STEP_GRAD_RTOL, post_step=True)
 
 
 def profile_step(step, state, frame, cache):
@@ -713,9 +889,13 @@ def profile_step(step, state, frame, cache):
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
 
 
-def train(field, params, ds, cache, opt, dev):
-    """WARMUP + TIMED flagship train steps from `params` (updated in place),
-    bfloat16 MLPs, the flow loss on; returns the launch counts of all steps."""
+def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classic=False,
+          profile=True):
+    """warmup + timed flagship train steps from `params` (updated in place),
+    bfloat16 MLPs, the flow loss on, each step's kernel launches checked
+    against `launches_per_step`; then, with `profile`, one step under the
+    profiler. Returns (launch counts of all steps, mean ms/step of the timed
+    steps, their losses)."""
     from lidar4d_tpu_torch.ops import _cuda
     from lidar4d_tpu_torch.train.losses import LossConfig
     from lidar4d_tpu_torch.train.train_step import (
@@ -734,7 +914,7 @@ def train(field, params, ds, cache, opt, dev):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     losses, times = [], []
-    for i in range(WARMUP + TIMED):
+    for i in range(warmup + timed):
         t0 = time.perf_counter()
         state, metrics = step(state, frames[i % STEP_FRAMES], fc)
         torch.cuda.synchronize()
@@ -743,24 +923,160 @@ def train(field, params, ds, cache, opt, dev):
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (m, t) in enumerate(zip(losses, times)):
-        print(f"  step {i} ({'warm-up' if i < WARMUP else 'timed'}): {t * 1e3:.1f} ms, "
+        print(f"  step {i} ({'warm-up' if i < warmup else 'timed'}): {t * 1e3:.1f} ms, "
               + ", ".join(f"{k} {v:.6f}" for k, v in m.items()), flush=True)
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"step {i}: a loss is not finite: {m}")
-    step_s = float(np.mean(times[WARMUP:]))
-    print(f"  flagship train step: {step_s * 1e3:.2f} ms/step (mean of {TIMED}, min "
-          f"{min(times[WARMUP:]) * 1e3:.2f}), {TRAIN_RAYS / step_s:.1f} train rays/s per GPU, "
-          f"peak memory {peak:.2f} GiB", flush=True)
-    want = launches_per_step(field)
-    n_steps = WARMUP + TIMED
+    step_s = float(np.mean(times[warmup:]))
+    print(f"  flagship train step{' (classic)' if classic else ''}: {step_s * 1e3:.2f} ms/step "
+          f"(mean of {timed}, min {min(times[warmup:]) * 1e3:.2f}), "
+          f"{TRAIN_RAYS / step_s:.1f} train rays/s per GPU, peak memory {peak:.2f} GiB",
+          flush=True)
+    want = launches_per_step(field, classic)
+    n_steps = warmup + timed
     print(f"  launches per step {json.dumps({k: v / n_steps for k, v in launches.items()})} "
           f"(expected {json.dumps(want)})", flush=True)
     for name, per_step in want.items():
         if launches[name] != per_step * n_steps:
             raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
                                  f"expected {per_step} per step")
-    profile_step(step, state, frames[0], fc)
+    if profile:
+        profile_step(step, state, frames[0], fc)
+    return launches, step_s * 1e3, losses[warmup:]
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper swapped for its plain PyTorch version, on the
+    card's tensors too: the autograd.Functions then run the plain halves."""
+    from lidar4d_tpu_torch.ops import hash_onehot as ho
+    from lidar4d_tpu_torch.ops import plane_onehot as po
+
+    swaps = {(ho, "hash_grid_fwd"): ho.hash_grid_fwd_plain,
+             (ho, "hash_grid_bwd"): ho.hash_grid_bwd_plain,
+             (po, "plane_bilinear_fwd"): po.plane_bilinear_plain,
+             (po, "plane_bilinear_bwd"): po.plane_bilinear_bwd_plain,
+             (po, "plane_bilinear_vjp"): po.plane_bilinear_vjp_plain,
+             (po, "plane_linear_fwd"): po.plane_linear_plain,
+             (po, "plane_linear_bwd"): po.plane_linear_bwd_plain}
+    saved = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def check_encoders(field, params, ds, opt, dev):
+    """Planes4D.__call__ of the flagship field on one train frame's
+    TRAIN_RAYS x num_fine points, warped by the flagship flow net (xyz =
+    x01 + flow(x01, ENCODER_FLOW_T)[:, :3]), at a per-ray time that
+    includes the frame times 0 and 1; O(0.1-1) tables and time planes
+    (`signal_params`: time planes of ones give a zero coordinate gradient),
+    float32 MLPs. Forward, then two backward passes with fixed cotangents:
+    into every plane from both outputs, and into every flow-net parameter
+    from the dynamic output (the static lookups' points are ray positions by
+    contract: no coordinate gradient, and a NaN from the hashed planes).
+    The planes run on the kernels and again on the plain versions on the
+    card, from one flow-net forward (so that both look the planes up at the
+    same points: trained planes turn an ulp of a warped coordinate into
+    1e-5 of a value); the flow net's backward runs on each side's own.
+    Values within KERNEL_RTOL, gradients within GRAD_RTOL. Returns the
+    kernel run's launches."""
+    from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
+    from lidar4d_tpu_torch.ops import _cuda
+    from lidar4d_tpu_torch.ops.rays import get_lidar_rays
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    cfg = field.cfg
+    rays = get_lidar_rays(torch.as_tensor(ds.frame(0)["pose"], device=dev), FOV, ds.H_lidar,
+                          ds.W_lidar, N=TRAIN_RAYS, generator=gen)
+    x01 = chunk_points(rays["rays_o"], rays["rays_d"], cfg.near_lidar, cfg.far_lidar,
+                       cfg.bound, opt.num_fine)
+    t = per_ray_times(TRAIN_RAYS, opt.num_fine, cfg.num_frames, gen, dev)
+    planes, flow = field.planes_encoder, field.flow_net
+    signal = signal_params(params)
+    n, n_out = x01.shape[0], planes.n_output_dims // 2
+    cs = torch.randn(n, n_out, generator=gen, device=dev)
+    cd = torch.randn(n, n_out, generator=gen, device=dev)
+    print(f"  Planes4D.__call__ on {n} points ({TRAIN_RAYS} rays x {opt.num_fine} samples), "
+          f"{int((t == 0).sum() + (t == 1).sum())} of them at t = 0 or 1", flush=True)
+    runs = {}
+    flow_params = tree_to_torch(signal["flow"], dev)
+    flow_leaves = tree_leaves(flow_params)
+    for leaf in flow_leaves:
+        leaf.requires_grad_(True)
+    _cuda.reset_launch_counts()
+    with mlp_dtype(torch.float32):
+        pts = torch.cat([x01 + flow(flow_params, x01, ENCODER_FLOW_T)[:, :3], t], -1)
+        for label in ("kernels", "plain"):
+            p = tree_to_torch(signal["planes"], dev)
+            plane_leaves = tree_leaves(p)
+            for leaf in plane_leaves:
+                leaf.requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with plain_kernels() if label == "plain" else contextlib.nullcontext():
+                static, dynamic = planes(p, pts)
+                g_planes = torch.autograd.grad((static * cs).sum() + (dynamic * cd).sum(),
+                                               plane_leaves, retain_graph=True)
+                g_flow = torch.autograd.grad((dynamic * cd).sum(), flow_leaves,
+                                             retain_graph=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[label] = ([static.detach(), dynamic.detach()], list(g_planes) + list(g_flow),
+                           dict(_cuda.LAUNCHES))
+            print(f"  {label}: forward + backward {ms:.1f} ms (host clock), launches "
+                  f"{json.dumps(runs[label][2])}", flush=True)
+            _cuda.reset_launch_counts()
+    (vals, grads, launches), (p_vals, p_grads, p_launches) = runs["kernels"], runs["plain"]
+    worst = {}
+    for kind, got, want, tol in (("values", vals, p_vals, KERNEL_RTOL),
+                                 ("gradients", grads, p_grads, GRAD_RTOL)):
+        for a, b in zip(got, want):
+            scale = b.abs().max().item()
+            rel = (a - b).abs().max().item() / max(scale, 1e-30)
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+            if not (torch.isfinite(a).all() and scale > 0 and rel <= tol):
+                raise AssertionError(f"encoders {kind}: kernels vs plain {rel} > {tol} "
+                                     f"(scale {scale})")
+    g_flow = grads[len(tree_leaves(signal["planes"])):]
+    print(f"  kernels vs plain on the card: max relative gap {json.dumps(worst)} (tolerances "
+          f"values {KERNEL_RTOL:g}, gradients {GRAD_RTOL:g}); flow-net gradient magnitudes "
+          f"{[float(f'{g.abs().max().item():.3e}') for g in g_flow]}", flush=True)
+    # one launch per scale in each of the two backward passes
+    want = 2 * len(planes.multiscale_res)
+    if launches["plane_bilinear_vjp"] != want or any(p_launches.values()):
+        raise AssertionError(f"encoders: {launches['plane_bilinear_vjp']} plane_bilinear_vjp "
+                             f"launches (expected {want}); plain run launched {p_launches}")
     return launches
+
+
+def check_classic(field, params, ds, cache, opt, dev):
+    """The classic route (ONEHOT_VARIANT "classic"): its hash_grid cases at
+    the train step's per-call sizes; one classic step against one fact step
+    on the card (uniform sampling, float32 MLPs, the same params and draws);
+    CLASSIC_WARMUP + CLASSIC_TIMED flagship steps from a fresh seeded init.
+    Returns (the cases' summary, launches, ms/step, timed losses)."""
+    with onehot_variant("classic"):
+        summary = check_train_kernels(field, params, ds, cache, opt, dev, classic=True)
+    signal = signal_params(params)
+    sampling = dict(num_steps=UNIFORM_STEPS)
+    with mlp_dtype(torch.float32):
+        with onehot_variant("fact"):
+            fact = step_grads(field, signal, ds, cache, sampling)
+        with onehot_variant("classic"):
+            classic = step_grads(field, signal, ds, cache, sampling, draws=fact[3])
+    compare_steps("classic vs fact", field, signal, classic, fact, CLASSIC_STEP_RTOL,
+                  CLASSIC_GRAD_RTOL, post_step=False)
+    with onehot_variant("classic"):
+        launches, ms, losses = train(field, field.init(seed=SEED), ds, cache, opt, dev,
+                                     CLASSIC_WARMUP, CLASSIC_TIMED, classic=True,
+                                     profile=False)
+    return summary, launches, ms, losses
 
 
 def main():
@@ -831,7 +1147,8 @@ def main():
         return render_rays(
             f, tree_to_torch(p, d), torch.as_tensor(rays_o[0, sel], device=d),
             torch.as_tensor(rays_d[0, sel], device=d), times[0],
-            num_steps=opt.num_steps, num_coarse=opt.num_coarse, num_fine=opt.num_fine)
+            num_steps=opt.num_steps, num_coarse=opt.num_coarse, num_fine=opt.num_fine,
+            with_aux=False)
 
     for mlp, atols in SLICE_ATOL.items():
         with mlp_dtype(getattr(torch, mlp)):
@@ -921,35 +1238,61 @@ def main():
     check_step_card_vs_cpu(tfield, params, ds, cache, opt, dev)
     seconds["train-check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_launches = train(tfield, params, ds, cache, opt, dev)
+    train_launches, _, _ = train(tfield, params, ds, cache, opt, dev)
     seconds["train"] = time.perf_counter() - t0
+
+    phase("encoders")
+    t0 = time.perf_counter()
+    encoder_launches = check_encoders(tfield, params, ds, opt, dev)
+    seconds["encoders"] = time.perf_counter() - t0
+
+    phase("classic")
+    t0 = time.perf_counter()
+    classic_summary, classic_launches, classic_ms, classic_losses = check_classic(
+        tfield, params, ds, cache, opt, dev)
+    seconds["classic"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print("seconds " + json.dumps({k: round(v, 2) for k, v in seconds.items()}), flush=True)
 
     print("  render-size forward kernels (one 16,384-ray chunk): " + json.dumps(
         {k: {f: round(v, 4) if isinstance(v, float) else v for f, v in s.items()}
          for k, s in summary.items()}), flush=True)
+    onehot = "lidar4d_tpu/ops/hash_onehot.py"
+    planes_py = "lidar4d_tpu/ops/plane_onehot.py"
     sources = {
         "hash_grid_fwd": ("lidar4d_tpu_torch/csrc/hash_grid_fwd.cu",
-                          "lidar4d_tpu/ops/hash_onehot.py:700"),
+                          f"{onehot}:139, {onehot}:377, {onehot}:763", train_launches),
         "plane_bilinear_fwd": ("lidar4d_tpu_torch/csrc/plane_bilinear_fwd.cu",
-                               "lidar4d_tpu/ops/plane_onehot.py:74"),
+                               f"{planes_py}:206", train_launches),
         "plane_linear_fwd": ("lidar4d_tpu_torch/csrc/plane_linear_fwd.cu",
-                             "lidar4d_tpu/ops/plane_onehot.py:381"),
+                             f"{planes_py}:459", train_launches),
         "hash_grid_bwd": ("lidar4d_tpu_torch/csrc/hash_grid_bwd.cu",
-                          "lidar4d_tpu/ops/hash_onehot.py:282"),
+                          f"{onehot}:172, {onehot}:420, {onehot}:901", train_launches),
         "plane_bilinear_bwd": ("lidar4d_tpu_torch/csrc/plane_bilinear_bwd.cu",
-                               "lidar4d_tpu/ops/plane_onehot.py:97"),
+                               f"{planes_py}:300", train_launches),
         "plane_linear_bwd": ("lidar4d_tpu_torch/csrc/plane_linear_bwd.cu",
-                             "lidar4d_tpu/ops/plane_onehot.py:406"),
+                             f"{planes_py}:492", train_launches),
+        "plane_bilinear_vjp": ("lidar4d_tpu_torch/csrc/plane_bilinear_vjp.cu",
+                               f"{planes_py}:247", encoder_launches),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, launches) in sources.items():
         s = train_summary[name]
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": train_launches[name], "max_abs_err": s["max_abs_err"],
+                        "launches": launches[name], "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+    n_classic = CLASSIC_WARMUP + CLASSIC_TIMED
+    print(json.dumps({"classic": {
+        "ms_per_step": classic_ms, "train_rays_per_s": TRAIN_RAYS / classic_ms * 1e3,
+        "loss": [m["loss"] for m in classic_losses],
+        "launches_per_step": {k: v / n_classic for k, v in classic_launches.items()},
+        "kernels": {name: dict(classic_summary[name], launches=classic_launches[name],
+                               replaces=f"{onehot}:{line}")
+                    for name, line in (("hash_grid_fwd", 139), ("hash_grid_bwd", 172))}}}),
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

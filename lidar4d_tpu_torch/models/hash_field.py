@@ -4,7 +4,8 @@ Port of `lidar4d_tpu/models/hash_field.py`. Parameters are a dict of float32
 tensors with the reference's layouts: `static` [rows, F] and `dynamic_p`
 [time_resolution * rows_p, F] for the xy/xz/yz planes. A lookup at time t
 blends the two adjacent time grids in TABLE space, then applies the Lagrange
-"interpT" over num_basis feature chunks (folded into the table).
+"interpT" over num_basis feature chunks (folded into the table under
+`hash_onehot.ONEHOT_VARIANT` "fact", after the encode under "classic").
 """
 
 from dataclasses import dataclass
@@ -12,9 +13,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lidar4d_tpu_torch.ops import hash_onehot
 from lidar4d_tpu_torch.ops.grid_sample import scalar_lerp_weights
 from lidar4d_tpu_torch.ops.hash_enc import HashEncoderSpec, init_hash_table, lagrange_weights
 from lidar4d_tpu_torch.ops.hash_onehot import (
+    folded_eligible,
     hash_encode_auto,
     hash_encode_fact_multi_folded,
     hash_encode_interp_auto,
@@ -99,17 +102,31 @@ class HashGrid4D:
                 self.dynamic_spec(p), tab, x[:, list(sel)], t, self.num_basis))
         return torch.cat(feats, dim=-1)
 
-    def forward_dynamic_multi(self, params, xs, ts):
-        """Dynamic encode of V time variants, one kernel launch per plane.
+    def forward_dynamic_multi(self, params, xs, ts, fused=None):
+        """Dynamic encode of V time variants.
 
         xs: [V, N, 3] in [0, 1] (variants may be flow-warped); ts: V scalar
         times. Returns [V, N, 3*L*F/B], per variant equal to forward_dynamic.
         Variant 0 is differentiable; variants 1..V-1 are the reference's
         `torch.no_grad()` neighbour lookups (reference hash_field.py
-        forward_dynamic_multi): their blended tables and their encoded
-        output are detached, so neither the tables nor the warped
-        coordinates (the flow net) get a gradient through them.
+        forward_dynamic_multi): they run without a graph, so neither the
+        tables nor the warped coordinates (the flow net) get a gradient
+        through them, and the one-hot NaN poison of their coordinates never
+        runs.
+
+        fused=None picks the reference's rule: the fused path (the folded
+        encode of all V variants, one kernel launch per plane) under
+        ONEHOT_VARIANT "fact" when every plane's spec is folded-eligible,
+        else V `forward_dynamic` calls.
         """
+        if fused is None:
+            fused = hash_onehot.ONEHOT_VARIANT == "fact" and all(
+                folded_eligible(self.dynamic_spec(p), self.num_basis) for p in range(3))
+        if not fused:
+            outs = [self.forward_dynamic(params, xs[0], ts[0])]
+            with torch.no_grad():
+                outs += [self.forward_dynamic(params, xs[v], t) for v, t in enumerate(ts) if v]
+            return torch.stack(outs)
         x = torch.clamp(xs, 0.0, 1.0)
         ws = torch.from_numpy(
             np.stack([lagrange_weights(t, self.num_basis) for t in ts])).to(xs.device)
@@ -121,3 +138,6 @@ class HashGrid4D:
                 x[:, :, list(sel)].contiguous(), ws)
             feats.append(torch.cat([g[:1], g[1:].detach()]))
         return torch.cat(feats, dim=-1)
+
+    def __call__(self, params, x, t):
+        return self.forward_static(params, x), self.forward_dynamic(params, x, t)

@@ -8,13 +8,16 @@ tensors: dense planes [C, reso[c1], reso[c0]] (coordinate c0 on the last
 axis), and — for the top `hash_scales` scales — a static plane stored as a
 [2^hash_log2, C] 1-level 2D hash table.
 
-Static dense planes go through `plane_bilinear` (one launch per scale for
-its three planes, forward and backward), hashed static planes through
-`hash_grid` (one launch for the three planes), and the dynamic planes,
-whose time axis collapses at the scalar t of a density query, through
-`plane_linear`. The static lookups' points are ray positions, so neither
-takes a coordinate gradient; the time-plane collapse stays in PyTorch, so
-autograd carries the time planes' gradient through it.
+Dense planes go through `plane_bilinear` (one launch per scale for a
+group's three planes, forward and backward), hashed static planes through
+`hash_grid` (one launch for the three planes). The static lookups' points
+are ray positions, so they take no coordinate gradient. The dynamic planes
+of a density query, whose time axis collapses at its scalar t, go through
+`plane_linear`; the time-plane collapse stays in PyTorch, so autograd
+carries the time planes' gradient through it. `forward_dynamic` and
+`__call__` look the time planes up at a per-sample time through
+`plane_bilinear(coord_grad=True)`, whose coordinate gradient
+(`plane_bilinear_vjp`) trains a flow net through warped lookups.
 """
 
 from dataclasses import dataclass
@@ -90,24 +93,45 @@ class Planes4D:
             params.append(planes)
         return params
 
-    def forward_static(self, params, pts):
-        """pts: [N, 4] in [0, 1] -> [N, C * n_scales] (product over xy/xz/yz)."""
+    def _forward(self, params, pts, combs, comb_ids, coord_grad=True):
+        """pts: [N, 4] in [0, 1] -> [N, C * n_scales]: per scale the product
+        of the group's planes, scales concatenated (reference `_forward`).
+
+        A group's dense planes of one shape run as one `plane_bilinear`
+        launch; planes of unequal shapes (anisotropic resolutions) run one
+        launch each. Hashed static planes run as one `hash_grid` launch; their
+        points are ray positions (the kernel NaN-poisons a coordinate
+        cotangent, as the reference's one-hot kernels do)."""
         outs = []
         for si, planes in enumerate(params):
-            group = [planes[ci] for ci in _STATIC_IDS]
+            group = [planes[ci] for ci in comb_ids]
+            pt = [pts[:, list(c)] for c in combs]
             if group[0].ndim == 2:
                 reso = self._scale_reso(self.multiscale_res[si])
-                spec = self._hash_spec(reso[0])
-                xs = torch.stack([pts[:, list(c)] for c in _STATIC_COMBS])
+                spec = self._hash_spec(reso[combs[0][0]])
                 feats = hash_grid(spec, torch.stack(group),
-                                  torch.clamp(xs, 0.0, 1.0))          # [3, N, C]
-                outs.append(feats[0] * feats[1] * feats[2])
+                                  torch.clamp(torch.stack(pt), 0.0, 1.0))  # [P, N, C]
+                feats = feats.transpose(1, 2)
+            elif len({g.shape for g in group}) == 1:
+                feats = plane_bilinear(torch.stack(group), torch.stack(pt), coord_grad)
             else:
-                pt = torch.stack([pts[:, list(c)] for c in _STATIC_COMBS])
-                feats = plane_bilinear(torch.stack(group), pt,
-                                       coord_grad=False)                # [3, C, N]
-                outs.append((feats[0] * feats[1] * feats[2]).T)
+                feats = [plane_bilinear(g[None], q[None].contiguous(), coord_grad)[0]
+                         for g, q in zip(group, pt)]
+            acc = feats[0]
+            for f in feats[1:]:
+                acc = acc * f                                          # [C, N]
+            outs.append(acc.T)
         return torch.cat(outs, dim=-1)
+
+    def forward_static(self, params, pts):
+        """pts: [N, 4] in [0, 1] -> [N, C * n_scales] (product over xy/xz/yz);
+        pts are ray positions, so no coordinate gradient is taken."""
+        return self._forward(params, pts, _STATIC_COMBS, _STATIC_IDS, coord_grad=False)
+
+    def forward_dynamic(self, params, pts):
+        """pts: [N, 4] in [0, 1] with a per-sample time pts[:, 3] ->
+        [N, C * n_scales] (product over xt/yt/zt), differentiable in pts."""
+        return self._forward(params, pts, _DYNAMIC_COMBS, _DYNAMIC_IDS)
 
     def forward_dynamic_scalar_t_multi(self, params, xyzs, ts, coord_grad_lead=0):
         """Dynamic (xt, yt, zt) features of V variants, each at a scalar time.
@@ -145,3 +169,6 @@ class Planes4D:
     def forward_dynamic_scalar_t(self, params, xyz, t):
         """Single-variant form: xyz [N, 3], scalar t -> [N, C * n_scales]."""
         return self.forward_dynamic_scalar_t_multi(params, xyz[None], [t])[0]
+
+    def __call__(self, params, pts):
+        return self.forward_static(params, pts), self.forward_dynamic(params, pts)

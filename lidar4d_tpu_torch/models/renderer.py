@@ -101,7 +101,7 @@ def render_draws(n, num_steps, num_coarse, num_fine, generator, device):
 
 
 def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
-                num_fine=0, perturb=False, with_aux=False, draws=None):
+                num_fine=0, perturb=False, with_aux=True, draws=None):
     """Render a batch of rays through the field (differentiable).
 
     rays_o, rays_d: [N, 3]; t: scalar time in [0, 1]. With num_coarse > 0,
@@ -169,7 +169,8 @@ def render_staged(field, params, rays_o, rays_d, t, num_steps=768, chunk=4096,
     depths, images = [], []
     for s in range(0, rays_o.shape[0], chunk):
         r = render_rays(field, params, rays_o[s:s + chunk], rays_d[s:s + chunk], t,
-                        num_steps=num_steps, num_coarse=num_coarse, num_fine=num_fine)
+                        num_steps=num_steps, num_coarse=num_coarse, num_fine=num_fine,
+                        with_aux=False)
         depths.append(r["depth_lidar"])
         images.append(r["image_lidar"])
     return {"depth_lidar": torch.cat(depths), "image_lidar": torch.cat(images)}

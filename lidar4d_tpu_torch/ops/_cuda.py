@@ -45,6 +45,8 @@ _SIGNATURES = {
     "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, stream
     "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # grid, pts, cot, dgrid, dpts, n_planes, n, channels, height, width, stream
+    "plane_bilinear_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

@@ -14,7 +14,11 @@ bit-identical to the reference's uint32 arithmetic.
 
 `hash_encode` here is the plain version of the CUDA kernel in
 `ops/hash_onehot.py`; it gathers `[L * 2^d, N]` rows, so it is meant for the
-CPU and for checking the kernel at moderate point counts.
+CPU and for checking the kernel at moderate point counts. In the reference
+`hash_encode` (with `row_offset`) and `hash_encode_blend` are XLA gathers,
+not Pallas kernels, so they stay plain PyTorch on every device; they are
+also the path `hash_encode_auto` takes where a caller needs the coordinate
+gradient.
 """
 
 from dataclasses import dataclass
@@ -133,24 +137,53 @@ def _level_indices(spec: HashEncoderSpec, x, level: int):
     return torch.stack(idxs), torch.stack(wgts)
 
 
-def hash_encode(spec: HashEncoderSpec, table, x):
-    """Encode points with a multiresolution hash grid.
-
-    Args:
-      table: [rows, F] float32 parameter table.
-      x:     [N, d] coordinates in [0, 1].
-    Returns:
-      [N, L * F] float32 features.
-    """
-    n = x.shape[0]
+def _all_indices(spec: HashEncoderSpec, x):
+    """Corner rows and weights of every level: idx, wgt [L, 2^d, N]."""
     idx_all, wgt_all = [], []
     for level in range(spec.n_levels):
         idx, wgt = _level_indices(spec, x, level)
         idx_all.append(idx)
         wgt_all.append(wgt)
-    idx = torch.stack(idx_all)                      # [L, C, N]
-    wgt = torch.stack(wgt_all)                      # [L, C, N]
+    return torch.stack(idx_all), torch.stack(wgt_all)
+
+
+def hash_encode(spec: HashEncoderSpec, table, x, row_offset=None):
+    """Encode points with a multiresolution hash grid.
+
+    Args:
+      table: [rows, F] (or [n_grids * n_rows, F]) float32 parameter table.
+      x:     [N, d] coordinates in [0, 1].
+      row_offset: optional int (or 0-d integer tensor) added to every row
+        index, selecting one grid of a stack of n_grids.
+    Returns:
+      [N, L * F] float32 features.
+    """
+    n = x.shape[0]
+    idx, wgt = _all_indices(spec, x)                # [L, C, N]
+    if row_offset is not None:
+        idx = idx + row_offset
     g = table[idx.reshape(-1)].reshape(*idx.shape, spec.n_features)  # [L, C, N, F]
+    acc = torch.sum(g * wgt[..., None], dim=1)      # [L, N, F]
+    return acc.permute(1, 0, 2).reshape(n, spec.n_levels * spec.n_features)
+
+
+def hash_encode_blend(spec: HashEncoderSpec, table, x, row_offsets, blend):
+    """Blend of K grid lookups that share corner indices, in one gather.
+
+    Args:
+      table:       [n_grids * n_rows, F] stacked grids.
+      row_offsets: [K] integer row offsets (grid index * n_rows).
+      blend:       [K] float32 blend weights.
+    Returns:
+      [N, L * F]: sum_k blend[k] * hash_encode(spec, table, x, row_offsets[k]).
+    """
+    n = x.shape[0]
+    idx, wgt = _all_indices(spec, x)                # [L, C, N]
+    offs = torch.as_tensor(row_offsets, dtype=torch.int64, device=x.device)
+    blend = torch.as_tensor(blend, dtype=torch.float32, device=x.device)
+    idx_k = idx[None] + offs[:, None, None, None]   # [K, L, C, N]
+    g = table[idx_k.reshape(-1)].reshape(*idx_k.shape, spec.n_features)
+    g = torch.sum(g * blend[:, None, None, None, None], dim=0)       # [L, C, N, F]
     acc = torch.sum(g * wgt[..., None], dim=1)      # [L, N, F]
     return acc.permute(1, 0, 2).reshape(n, spec.n_levels * spec.n_features)
 

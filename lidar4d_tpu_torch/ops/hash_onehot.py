@@ -1,11 +1,21 @@
 """Hash-grid encodes on the CUDA kernels `hash_grid_fwd` / `hash_grid_bwd`.
 
 Port of `lidar4d_tpu/ops/hash_onehot.py`. The TPU file wrote the row gather
-and its scatter as one-hot matmuls because the TPU has no fast gather;
-Hopper gathers and scatters directly, so every entry point here runs one
-forward kernel, `csrc/hash_grid_fwd.cu`, and one backward kernel,
-`csrc/hash_grid_bwd.cu`, each taking V tables and V point sets at once and
-computing corner rows and weights from x inside the kernel.
+and its scatter as one-hot matmuls because the TPU has no fast gather, in
+two layouts: the classic `[BN, R]` one-hot (`_fwd_call` / `_bwd_call`) and
+the factorized one (`_fwd_call_fact*`, `_bwd_call_fact`,
+`_folded_table_bwd`). Both compute one function with one gradient contract.
+Hopper gathers and scatters directly, so every entry point here, classic or
+factorized, runs one forward kernel, `csrc/hash_grid_fwd.cu`, and one
+backward kernel, `csrc/hash_grid_bwd.cu`, each taking V tables and V point
+sets at once and computing corner rows and weights from x inside the kernel.
+
+`ONEHOT_VARIANT` is the reference's A/B switch of the train and render
+path, read at call time: under "fact" (the default) `hash_encode_auto`
+takes the factorized route, `hash_encode_interp_auto` folds interpT into
+the table, and `HashGrid4D.forward_dynamic_multi` fuses its V variants into
+one launch per plane; under "classic" every encode runs at the table's own
+F, one launch per variant, and interpT follows the encode.
 
 Dispatch rule for every wrapper: a CPU tensor runs the plain PyTorch version
 (`hash_grid_fwd_plain`, built on `ops.hash_enc.hash_encode`, and
@@ -42,26 +52,34 @@ from lidar4d_tpu_torch.ops.hash_enc import (
 _MAX_LEVELS = 16
 _KERNEL_DIMS = (2, 3)
 _KERNEL_FEATURES = (1, 2, 4, 8)
-# Rows per level the kernel takes: keeps the row offsets of up to 16 levels
+# Rows per level the kernels take: keeps the row offsets of up to 16 levels
 # inside the kernel's 32-bit integers.
-FACT_MAX_ROWS = 1 << 24
+KERNEL_MAX_ROWS = 1 << 24
+# The reference's window of the factorized route (rows per level); the
+# classic route's is `hash_encode_auto`'s max_rows, 4096 by default.
+FACT_MAX_ROWS = 16384
+ONEHOT_VARIANT = "fact"
 
 
-def onehot_eligible(spec: HashEncoderSpec, max_rows=FACT_MAX_ROWS):
-    """Whether `hash_grid_fwd` takes this spec: 2 or 3 dims, F in
-    {1, 2, 4, 8} (the kernel's vector widths), at most 16 levels, and at most
-    `max_rows` rows per level. The TPU's tile rules (F % 8, VMEM) do not
-    apply to the gather kernel."""
+def onehot_eligible(spec: HashEncoderSpec, max_rows=4096):
+    """Whether the kernels take this spec with at most `max_rows` rows per
+    level: the reference's one-hot window (4096 rows by default, the classic
+    route's; `hash_encode_auto` passes its max_rows or fact_max_rows). The
+    kernels need 2 or 3 dims, F in {1, 2, 4, 8} (their vector widths) and at
+    most 16 levels; the TPU's tile rules (F % 8, VMEM) do not apply to
+    them."""
     return (spec.n_dims in _KERNEL_DIMS
             and spec.n_features in _KERNEL_FEATURES
             and spec.n_levels <= _MAX_LEVELS
-            and max(spec.table_sizes) <= max_rows)
+            and max(spec.table_sizes) <= min(max_rows, KERNEL_MAX_ROWS))
 
 
-def folded_eligible(spec: HashEncoderSpec, num_basis, fact_max_rows=FACT_MAX_ROWS):
-    """Whether the folded encode (F' = F / num_basis) runs on the kernel."""
+def folded_eligible(spec: HashEncoderSpec, num_basis, fact_max_rows=None):
+    """Whether the folded encode (F' = F / num_basis) runs on the kernels
+    within `fact_max_rows` rows per level (default FACT_MAX_ROWS)."""
     if spec.n_features % num_basis:
         return False
+    fact_max_rows = FACT_MAX_ROWS if fact_max_rows is None else fact_max_rows
     return onehot_eligible(_folded_spec(spec, num_basis), fact_max_rows)
 
 
@@ -99,7 +117,7 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
             f"do not match {spec}")
     if xs.device.type == "cpu":
         return hash_grid_fwd_plain(spec, tables, xs)
-    if not onehot_eligible(spec):
+    if not onehot_eligible(spec, KERNEL_MAX_ROWS):
         raise ValueError(f"hash_grid_fwd kernel does not take {spec}")
     _cuda.check_cuda_tensor("tables", tables)
     _cuda.check_cuda_tensor("xs", xs)
@@ -156,7 +174,7 @@ def hash_grid_bwd(spec: HashEncoderSpec, xs, cot, n_tables=None):
                          f"/ {n_tables} tables do not match {spec}")
     if xs.device.type == "cpu":
         return hash_grid_bwd_plain(spec, xs, cot, n_tables)
-    if not onehot_eligible(spec):
+    if not onehot_eligible(spec, KERNEL_MAX_ROWS):
         raise ValueError(f"hash_grid_bwd kernel does not take {spec}")
     _cuda.check_cuda_tensor("xs", xs)
     _cuda.check_cuda_tensor("cot", cot)
@@ -218,16 +236,60 @@ def hash_grid(spec: HashEncoderSpec, tables, xs):
 
 def hash_encode_onehot_fact(spec: HashEncoderSpec, table, x):
     """Hash encode of one point set, [rows, F], [N, d] -> [N, L*F], with the
-    reference's contract: table gradient, NaN-poisoned x gradient."""
+    reference's contract: the table gradient from `hash_grid_bwd`, and NaN
+    for x wherever the incoming cotangent is nonzero (`_poison_coord_grad`).
+    The reference's factorized one-hot encode (`_fwd_call_fact` /
+    `_bwd_call_fact`)."""
     return _HashGrid.apply(spec, 1, table[None], x[None], None)[0]
 
 
-def hash_encode_auto(spec: HashEncoderSpec, table, x, coord_grad=False):
-    """Hash encode with the package's dispatch rule (module docstring);
-    coord_grad=True takes the plain path, differentiable in x too."""
-    if coord_grad:
-        return hash_encode(spec, table, x)
-    return hash_encode_onehot_fact(spec, table, x)
+# The reference's classic one-hot encode (its Pallas `_fwd_call` /
+# `_bwd_call`): on Hopper the same function, kernels and contract as the
+# factorized one. A name of its own, so that the dispatch reads as the
+# reference's.
+hash_encode_onehot = hash_encode_onehot_fact
+
+
+def hash_encode_fact_multi(spec: HashEncoderSpec, table, tables_ng, xs):
+    """Unfolded encode of V point sets through V tables in one launch.
+
+    table [rows, F] (variant 0), tables_ng [V-1, rows, F], xs [V, N, d].
+    Returns [V, N, L*F], per variant equal to `hash_encode_onehot`. Only
+    variant 0's table is trained: tables_ng get a zero gradient. The x
+    poison is gated per variant, so a variant whose output the caller
+    detaches passes a zero cotangent to its coordinates.
+    """
+    tables = torch.cat([table[None], tables_ng])
+    return _HashGrid.apply(spec, 1, tables, xs, None)
+
+
+def hash_encode_auto(spec: HashEncoderSpec, table, x, row_offset=None, max_rows=4096,
+                     fact_max_rows=None, coord_grad=False):
+    """Hash encode with the reference's dispatch, in its order:
+
+      * `row_offset` or coord_grad=True: the plain `hash_encode`, which
+        differentiates in x too;
+      * ONEHOT_VARIANT "fact" and at most `fact_max_rows` rows per level
+        (default FACT_MAX_ROWS): `hash_encode_onehot_fact`;
+      * at most `max_rows` rows per level: `hash_encode_onehot`, the classic
+        route;
+      * else the reference's float32 gather, whose x gradient is real: the
+        plain `hash_encode` where x needs a gradient, the kernel (the same
+        function) where it does not.
+
+    The one-hot routes NaN-poison the x cotangent (module docstring), so a
+    caller that differentiates through x passes coord_grad=True.
+    """
+    fact_max_rows = FACT_MAX_ROWS if fact_max_rows is None else fact_max_rows
+    if row_offset is None and not coord_grad:
+        if ONEHOT_VARIANT == "fact" and onehot_eligible(spec, fact_max_rows):
+            return hash_encode_onehot_fact(spec, table, x)
+        if onehot_eligible(spec, max_rows):
+            return hash_encode_onehot(spec, table, x)
+        x_grad = torch.is_grad_enabled() and x.requires_grad
+        if not x_grad and onehot_eligible(spec, KERNEL_MAX_ROWS):
+            return hash_encode_onehot(spec, table, x)
+    return hash_encode(spec, table, x, row_offset=row_offset)
 
 
 def _fold_table(table, w, fp):
@@ -270,10 +332,11 @@ def hash_encode_fact_multi_folded(spec: HashEncoderSpec, table, tables_ng, xs, w
 
 def hash_encode_interp_auto(spec: HashEncoderSpec, table, x, t, num_basis,
                             coord_grad=False):
-    """interpT(encode(x), t): the folded encode when the spec splits into
-    basis chunks (kernel on CUDA, plain on CPU), else encode-then-interpT.
-    coord_grad=True takes the plain path, differentiable in x too."""
-    if not coord_grad and folded_eligible(spec, num_basis):
+    """interpT(encode(x), t): under ONEHOT_VARIANT "fact", the folded encode
+    when the spec splits into basis chunks the kernels take (kernel on CUDA,
+    plain on CPU); else `hash_encode_auto`, then interpT. coord_grad=True
+    takes the plain path, differentiable in x too."""
+    if not coord_grad and ONEHOT_VARIANT == "fact" and folded_eligible(spec, num_basis):
         w = torch.from_numpy(lagrange_weights(t, num_basis)).to(x.device)
         return hash_encode_folded(spec, table, x, w)
     g = hash_encode_auto(spec, table, x, coord_grad=coord_grad)

@@ -1,5 +1,5 @@
-"""K-planes lookups on the CUDA kernels `plane_bilinear_fwd` / `_bwd` and
-`plane_linear_fwd` / `_bwd`.
+"""K-planes lookups on the CUDA kernels `plane_bilinear_fwd` / `_bwd` /
+`_vjp` and `plane_linear_fwd` / `_bwd`.
 
 Port of `lidar4d_tpu/ops/plane_onehot.py`. The TPU kernels contract weighted
 2-hot vectors with the planes as bf16 matmuls, forward and backward; on
@@ -10,16 +10,30 @@ gradient with float32 atomics.
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. The plain versions are the float32
 `grid_sample_2d` and an explicit float32 lerp — not the reference's bf16
-`plane_linear_ref` — and their backward halves are autograd of them.
+`plane_linear_ref` — and their backward halves are autograd of them, but
+for `plane_bilinear`'s coordinate gradient, which is written out in the
+kernel's subgradient convention (below).
 
 Gradient contracts (the reference's custom VJPs):
-  * `plane_bilinear(coord_grad=False)`: the plane gradient only, and a
-    silent zero for pts (static planes: pts are ray positions).
-    `coord_grad=True` (the coordinate gradient, TPU row `_vjp_bwd`) has no
-    kernel yet: it runs the plain version on the CPU and raises on CUDA.
+  * `plane_bilinear(coord_grad=True)`, the default: the plane gradient and
+    the coordinate gradient, both from `plane_bilinear_vjp` (the reference's
+    `_vjp_bwd`; kernel `csrc/plane_bilinear_vjp.cu`).
+  * `plane_bilinear(coord_grad=False)`: the plane gradient only
+    (`plane_bilinear_bwd`), and a silent zero for pts (static planes: pts
+    are ray positions).
   * `plane_linear(coord_grad_lead)`: the table gradient, and the coordinate
     gradient for the tables from `coord_grad_lead` on; the first
     `coord_grad_lead` tables get zero and their kernel skips that work.
+
+Coordinate subgradient convention (kernel and plain version alike): the
+reference kernel's tent. d/du of the bilinear weights is taken as
+sign(x - u) * [|x - u| < 1] per pixel column x, which is 0 at an exact
+integer u (u = clip(px, 0, 1) * (W - 1)), so du = 0 there, on the border
+u = 0 and u = W - 1 included; dv likewise. The chain through the clip
+passes 1 on the closed interval 0 <= px <= 1 and 0 outside. Elsewhere this
+is the float32 gather's gradient (`jax.grad` of `grid_sample_2d`), which
+takes a one-sided difference at integers instead; per-sample times at frame
+nodes (t = k / (T - 1)) put v on integers often.
 """
 
 import torch
@@ -94,38 +108,95 @@ def plane_bilinear_bwd(pts, cot, hw):
     return dgrid
 
 
+def plane_bilinear_vjp_plain(grid, pts, cot):
+    """Plain version of `plane_bilinear_vjp`: (dG, dpts) in float32 with
+    the tent convention of the module docstring."""
+    p, c, h, w = grid.shape
+    dgrid = plane_bilinear_bwd_plain(pts, cot, (h, w))
+    px, py = pts[..., 0], pts[..., 1]
+    x = torch.clamp(px, 0.0, 1.0) * (w - 1)
+    y = torch.clamp(py, 0.0, 1.0) * (h - 1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    tx, ty = x - x0, y - y0
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    x1i = torch.clamp(x0i + 1, max=w - 1)
+    y1i = torch.clamp(y0i + 1, max=h - 1)
+    flat = grid.reshape(p, c, h * w)
+
+    def corner(yi, xi):                                          # [P, C, N]
+        return torch.gather(flat, 2, (yi * w + xi)[:, None, :].expand(-1, c, -1))
+
+    g00, g01, g10, g11 = corner(y0i, x0i), corner(y0i, x1i), corner(y1i, x0i), corner(y1i, x1i)
+    tx_, ty_ = tx[:, None, :], ty[:, None, :]
+    du = torch.sum(cot * ((1.0 - ty_) * (g01 - g00) + ty_ * (g11 - g10)), dim=1)
+    dv = torch.sum(cot * ((1.0 - tx_) * (g10 - g00) + tx_ * (g11 - g01)), dim=1)
+    live_x = (tx != 0) & (px >= 0.0) & (px <= 1.0)
+    live_y = (ty != 0) & (py >= 0.0) & (py <= 1.0)
+    dpts = torch.stack([torch.where(live_x, du * (w - 1), 0.0),
+                        torch.where(live_y, dv * (h - 1), 0.0)], dim=-1)
+    return dgrid, dpts
+
+
+def plane_bilinear_vjp(grid, pts, cot):
+    """Both gradients of `plane_bilinear_fwd`: grid [P, C, H, W], pts
+    [P, N, 2], cot [P, C, N] -> (dG [P, C, H, W], dpts [P, N, 2]) float32,
+    with the tent convention of the module docstring."""
+    p, c, h, w = grid.shape
+    n = pts.shape[1]
+    if pts.shape != (p, n, 2) or cot.shape != (p, c, n):
+        raise ValueError(f"plane_bilinear_vjp: grid {tuple(grid.shape)} / pts "
+                         f"{tuple(pts.shape)} / cot {tuple(cot.shape)}")
+    if pts.device.type == "cpu":
+        return plane_bilinear_vjp_plain(grid, pts, cot)
+    if c not in _KERNEL_CHANNELS:
+        raise ValueError(f"plane_bilinear_vjp kernel takes C in {_KERNEL_CHANNELS}, got {c}")
+    for name, t in (("grid", grid), ("pts", pts), ("cot", cot)):
+        _cuda.check_cuda_tensor(name, t)
+    pts = _cuda.aligned(pts, 8)
+    dgrid = torch.zeros((p, c, h, w), dtype=torch.float32, device=pts.device)
+    dpts = torch.empty((p, n, 2), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return dgrid, dpts
+    _cuda.launch("plane_bilinear_vjp", pts.device, grid.data_ptr(), pts.data_ptr(),
+                 cot.data_ptr(), dgrid.data_ptr(), dpts.data_ptr(), p, n, c, h, w)
+    return dgrid, dpts
+
+
 class _PlaneBilinear(torch.autograd.Function):
-    """`plane_bilinear_fwd`, backward `plane_bilinear_bwd`; pts get zero."""
+    """`plane_bilinear_fwd`; backward `plane_bilinear_vjp` when pts need a
+    gradient and `coord_grad`, else `plane_bilinear_bwd` (pts get zero)."""
 
     @staticmethod
-    def forward(ctx, grid, pts):
-        ctx.hw = tuple(grid.shape[2:])
-        ctx.save_for_backward(pts)
+    def forward(ctx, grid, pts, coord_grad):
+        ctx.coord_grad = coord_grad
+        ctx.save_for_backward(grid, pts)
         return plane_bilinear_fwd(grid, pts)
 
     @staticmethod
     def backward(ctx, cot):
-        (pts,) = ctx.saved_tensors
+        grid, pts = ctx.saved_tensors
+        cot = cot.contiguous()
         dgrid = dpts = None
-        if ctx.needs_input_grad[0]:
-            dgrid = plane_bilinear_bwd(pts, cot.contiguous(), ctx.hw)
-        if ctx.needs_input_grad[1]:
+        if ctx.coord_grad and ctx.needs_input_grad[1]:
+            dgrid, dpts = plane_bilinear_vjp(grid, pts, cot)
+        elif ctx.needs_input_grad[0]:
+            dgrid = plane_bilinear_bwd(pts, cot, tuple(grid.shape[2:]))
+        if ctx.needs_input_grad[1] and dpts is None:
             dpts = torch.zeros_like(pts)
-        return dgrid, dpts
+        return (dgrid if ctx.needs_input_grad[0] else None), dpts, None
 
 
-def plane_bilinear(grid, pts, coord_grad=False):
+def plane_bilinear(grid, pts, coord_grad=True):
     """Bilinear-sample P feature planes at P point sets: [P, C, H, W],
     [P, N, 2] -> [P, C, N] (see `plane_bilinear_fwd`), differentiable in the
-    planes; pts get a zero gradient unless coord_grad=True, which runs the
-    plain version, differentiable in pts too, and raises on CUDA (its kernel,
-    the reference's `_vjp_bwd`, is not ported yet)."""
-    if coord_grad:
-        if pts.device.type != "cpu":
-            raise NotImplementedError(
-                "plane_bilinear(coord_grad=True) has no CUDA kernel yet")
-        return plane_bilinear_plain(grid, pts)
-    return _PlaneBilinear.apply(grid, pts)
+    planes and, with coord_grad=True (the reference's default), in pts;
+    coord_grad=False gives pts a zero gradient."""
+    return _PlaneBilinear.apply(grid, pts, coord_grad)
+
+
+# The reference's name for its gather path of `plane_bilinear`.
+plane_bilinear_ref = plane_bilinear_plain
 
 
 def plane_linear_plain(grid, x):
@@ -140,6 +211,11 @@ def plane_linear_plain(grid, x):
     g0 = torch.gather(gt, 1, j0[:, :, None].expand(-1, -1, c))  # [P, N, C]
     g1 = torch.gather(gt, 1, j1[:, :, None].expand(-1, -1, c))
     return (1.0 - f) * g0 + f * g1
+
+
+# The reference's name for its pure-XLA `plane_linear`, which is a one-hot
+# bfloat16 matmul; the port's is the exact float32 lerp.
+plane_linear_ref = plane_linear_plain
 
 
 def plane_linear_fwd(grid, x):

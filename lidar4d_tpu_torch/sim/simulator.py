@@ -4,10 +4,14 @@ Port of `lidar4d_tpu/sim/simulator.py`: renders a field along a (novel)
 trajectory at any sensor configuration (fov / H / W), optionally refines the
 ray-drop mask with the U-Net, and back-projects each frame to a point cloud.
 Writing point clouds, image panels and a video is optional; `cv2` and
-`imageio` are imported only when images or a video are asked for.
+`imageio` are imported only when images or a video are asked for, and the
+images and the video are best-effort as in the reference: without `cv2`
+none is made, and a failed video write warns. The point clouds always come
+back.
 """
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -108,10 +112,10 @@ class Simulator:
                     d = os.path.join(self.workspace, "points")
                     os.makedirs(d, exist_ok=True)
                     np.save(os.path.join(d, f"lidar4d_{i:04d}.npy"), pred_lidar)
-                if save_img or save_video:
+                panel = _panel(raydrop, intensity, depth) if save_img or save_video else None
+                if panel is not None:
                     import cv2
 
-                    panel = _panel(cv2, raydrop, intensity, depth)
                     if save_img:
                         d = os.path.join(self.workspace, "images")
                         os.makedirs(d, exist_ok=True)
@@ -120,17 +124,26 @@ class Simulator:
                         video.append(cv2.cvtColor(panel, cv2.COLOR_BGR2RGB))
 
         if save_video and video:
-            import imageio
+            try:
+                import imageio
 
-            d = os.path.join(self.workspace, "video")
-            os.makedirs(d, exist_ok=True)
-            imageio.mimwrite(os.path.join(d, "lidar4d_sim.mp4"), np.stack(video),
-                             fps=5, quality=8, macro_block_size=1)
+                d = os.path.join(self.workspace, "video")
+                os.makedirs(d, exist_ok=True)
+                imageio.mimwrite(os.path.join(d, "lidar4d_sim.mp4"), np.stack(video),
+                                 fps=5, quality=8, macro_block_size=1)
+            except Exception as e:  # the video is best-effort, as in the reference
+                warnings.warn(f"video write failed: {e!r}")
         return pred_lidar
 
 
-def _panel(cv2, raydrop, intensity, depth):
-    """Stacked raydrop / intensity / depth colour panel (BGR, uint8)."""
+def _panel(raydrop, intensity, depth):
+    """Stacked raydrop / intensity / depth colour panel (BGR, uint8), or
+    None without cv2 (images and video are then skipped, as in the
+    reference)."""
+    try:
+        import cv2
+    except ImportError:
+        return None
     img_raydrop = cv2.cvtColor(
         (np.clip(raydrop, 0, 1) * 255).astype(np.uint8), cv2.COLOR_GRAY2BGR)
     img_intensity = cv2.applyColorMap((np.clip(intensity, 0, 1) * 255).astype(np.uint8), 1)

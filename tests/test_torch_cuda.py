@@ -94,15 +94,73 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         ho.hash_grid_fwd(spec, tables.requires_grad_(), _rand(dev, 1, 10, 3))
 
 
-def test_plane_bilinear_coord_grad_raises_on_cuda(dev):
-    """The coordinate-gradient kernel (the reference's `_vjp_bwd`) is not
-    ported: a grad-requiring CUDA input raises, it does not fall back."""
-    grid = _rand(dev, 3, 8, 16, 16).requires_grad_()
-    pts = _rand(dev, 3, 100, 2).requires_grad_()
+def _edge_points(dev, p, n, h, w, seed):
+    """[P, N, 2] points in [-0.1, 1.1]^2 whose first rows sit on exact
+    integer pixels, on the border and on the time nodes t = k / (H - 1)."""
+    pts = _rand(dev, p, n, 2, lo=-0.1, hi=1.1, seed=seed)
+    k = torch.arange(64, device=dev, dtype=torch.float32)
+    pts[:, :64, 0] = (k % w) / (w - 1)
+    pts[:, :64, 1] = (k % h) / (h - 1)
+    pts[:, 64:70] = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.5], [0.5, 0.0],
+                                  [1.2, -0.1]], device=dev)
+    return pts
+
+
+@pytest.mark.parametrize("hw", [(8, 32), (8, 256), (32, 32), (128, 128), (5, 17)])
+def test_plane_bilinear_vjp_matches_plain(dev, hw):
+    """Row 8 (the reference's `_vjp_bwd`): dG and dpts against the plain
+    version, exact-integer and border coordinates included (a [8, 8, 256]
+    time plane fills the kernel's 64 KB shared accumulator; 128^2 takes
+    the global atomics)."""
+    h, w = hw
+    grid = _rand(dev, 3, 8, h, w, lo=0.1, hi=0.9, seed=30)
+    pts = _edge_points(dev, 3, 7000, h, w, seed=31)
+    cot = _rand(dev, 3, 8, 7000, lo=-1, hi=1, seed=32)
+    before = _cuda.LAUNCHES["plane_bilinear_vjp"]
+    dg, dp = po.plane_bilinear_vjp(grid, pts, cot)
+    assert _cuda.LAUNCHES["plane_bilinear_vjp"] == before + 1
+    want_dg, want_dp = po.plane_bilinear_vjp_plain(grid, pts, cot)
+    assert _rel(dg, want_dg) <= GRAD_RTOL
+    assert _rel(dp, want_dp) <= GRAD_RTOL
+    assert torch.equal(dp == 0, want_dp == 0)          # the tent's zeros, point by point
+
+
+def test_plane_bilinear_coord_grad_launches_vjp(dev):
+    """The default plane_bilinear (coord_grad=True) with pts that need a
+    gradient runs its backward on the row-8 kernel, and matches the CPU."""
+    grid = _rand(dev, 3, 8, 8, 64, seed=33).requires_grad_()
+    pts = _edge_points(dev, 3, 5000, 8, 64, seed=34).requires_grad_()
     before = dict(_cuda.LAUNCHES)
-    with pytest.raises(NotImplementedError):
-        po.plane_bilinear(grid, pts, coord_grad=True)
-    assert _cuda.LAUNCHES == before
+    po.plane_bilinear(grid, pts).square().sum().backward()
+    assert _cuda.LAUNCHES["plane_bilinear_vjp"] == before["plane_bilinear_vjp"] + 1
+    assert _cuda.LAUNCHES["plane_bilinear_bwd"] == before["plane_bilinear_bwd"]
+    gc, pc = (t.detach().cpu().requires_grad_() for t in (grid, pts))
+    po.plane_bilinear(gc, pc).square().sum().backward()
+    assert _rel(grid.grad.cpu(), gc.grad) <= GRAD_RTOL
+    assert _rel(pts.grad.cpu(), pc.grad) <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("spec", [
+    HashEncoderSpec(3, 6, 8, 11, 64, 2048),      # flagship static
+    HashEncoderSpec(2, 6, 8, 11, 64, 2048),      # flagship dynamic xy, unfolded
+    HashEncoderSpec(3, 4, 8, 11, 16, 256),       # flagship flow grid, unfolded
+], ids=str)
+def test_hash_encode_onehot_matches_plain(dev, spec):
+    """Rows 1-2 (the reference's classic `_fwd_call` / `_bwd_call`): one
+    launch of each kernel, values and table gradient against the CPU."""
+    table = _rand(dev, spec.n_rows, spec.n_features, lo=-1, hi=1, seed=35).requires_grad_()
+    x = _rand(dev, 6000, spec.n_dims, seed=36)
+    cot = _rand(dev, 6000, spec.n_output_dims, lo=-1, hi=1, seed=37)
+    before = dict(_cuda.LAUNCHES)
+    out = ho.hash_encode_onehot(spec, table, x)
+    (out * cot).sum().backward()
+    for name in ("hash_grid_fwd", "hash_grid_bwd"):
+        assert _cuda.LAUNCHES[name] == before[name] + 1, name
+    tc = table.detach().cpu().requires_grad_()
+    want = ho.hash_encode_onehot(spec, tc, x.cpu())
+    (want * cot.cpu()).sum().backward()
+    assert _rel(out.detach().cpu(), want.detach()) <= RTOL
+    assert _rel(table.grad.cpu(), tc.grad) <= GRAD_RTOL
 
 
 def test_zero_points_launch_nothing(dev):

@@ -365,6 +365,47 @@ def test_simulator_render_writes_point_clouds(fields, tmp_path):
     np.testing.assert_array_equal(np.load(tmp_path / "points" / files[-1]), pc)
 
 
+@pytest.mark.parametrize("missing", ["cv2", "imageio"])
+def test_simulator_render_is_best_effort_without_cv2_or_imageio(fields, tmp_path, monkeypatch,
+                                                                 missing):
+    """The default call (point clouds, images and a video asked for) on a
+    machine without cv2 or without imageio, as the reference behaves: no
+    image panel without cv2, a warning for a video that cannot be written,
+    and the point clouds come back and are written either way."""
+    import sys
+    from types import SimpleNamespace
+
+    _, tf, _, tp = fields
+    monkeypatch.setitem(sys.modules, missing, None)
+    opt = SimpleNamespace(num_steps=16, num_coarse=0, num_fine=0, scale=0.01,
+                          fov_lidar=(2.0, 26.9))
+    rays_o, rays_d = _sim_inputs()
+    sim = tsim.Simulator("l", opt, tf, tp, workspace=str(tmp_path), use_refine=False,
+                         H_lidar=16, W_lidar=32, device="cpu")
+    if missing == "cv2":
+        pc = sim.render(rays_o, rays_d, [0.0, 0.5], frame_batch=1)
+        assert not (tmp_path / "images").exists()
+    else:
+        with pytest.warns(UserWarning, match="video write failed"):
+            pc = sim.render(rays_o, rays_d, [0.0, 0.5], frame_batch=1)
+        assert len(list((tmp_path / "images").iterdir())) == 2
+    assert not (tmp_path / "video").exists() or not any((tmp_path / "video").iterdir())
+    assert pc.ndim == 2 and pc.shape[1] == 4 and np.isfinite(pc).all()
+    np.testing.assert_array_equal(np.load(tmp_path / "points" / "lidar4d_0001.npy"), pc)
+
+
+def test_render_rays_default_keys_match_jax(fields):
+    """render_rays defaults to with_aux=True as the reference does: the same
+    keys, and weights / z_vals that agree."""
+    jf, tf, jp, tp = fields
+    o, d = _rays(13, n=24)
+    want = jr.render_rays(jf, jp, jnp.asarray(o), jnp.asarray(d), jnp.float32(0.5), num_steps=8)
+    got = tr.render_rays(tf, tp, torch.from_numpy(o), torch.from_numpy(d), 0.5, num_steps=8)
+    assert sorted(got) == sorted(want)
+    for k in ("weights", "z_vals"):
+        _close(got[k], want[k], BF16_TOL)
+
+
 def test_entry_points_default_to_cuda(monkeypatch, fields):
     """With no CUDA, the default device raises instead of falling back."""
     _, tf, _, tp = fields

@@ -47,8 +47,11 @@ import torch
 import lidar4d_tpu.models.flow_field as jflow_mod
 import lidar4d_tpu.models.lidar4d as jlidar_mod
 import lidar4d_tpu.models.planes_field as jplanes_mod
+import lidar4d_tpu.ops.hash_onehot as jho
 import lidar4d_tpu_torch.models.flow_field as tflow_mod
+import lidar4d_tpu_torch.models.hash_field as thash_mod
 import lidar4d_tpu_torch.models.lidar4d as tlidar_mod
+import lidar4d_tpu_torch.ops.hash_onehot as tho
 from lidar4d_tpu import native as jnative
 from lidar4d_tpu.data import kitti360 as jkitti
 from lidar4d_tpu.data import synthetic as jsynth
@@ -520,12 +523,9 @@ def _f32_plane_linear(grid, x, coord_grad_lead=0):
     return (1.0 - f) * g0 + f * g1
 
 
-def test_train_step_matches_jax_f32(scene, fields, monkeypatch):
+def _f32_everywhere(monkeypatch):
     """The reference's plane_linear swapped for a float32 lerp and both
-    packages' MLPs in float32: float32-level agreement of the loss, every
-    metric, every gradient leaf and the post-step parameters. The JAX step
-    is traced afresh under the patch and the caches are cleared after."""
-    jf, tf, jparams = fields
+    packages' MLPs in float32."""
     monkeypatch.setattr(jplanes_mod, "plane_linear", _f32_plane_linear)
     j32 = functools.partial(jmlp.apply_mlp, dtype=jnp.float32)
     monkeypatch.setattr(jlidar_mod, "apply_mlp", j32)
@@ -533,6 +533,48 @@ def test_train_step_matches_jax_f32(scene, fields, monkeypatch):
     t32 = functools.partial(tmlp.apply_mlp, dtype=torch.float32)
     monkeypatch.setattr(tlidar_mod, "apply_mlp", t32)
     monkeypatch.setattr(tflow_mod, "apply_mlp", t32)
+
+
+def test_train_step_matches_jax_classic(scene, fields, monkeypatch):
+    """The step under ONEHOT_VARIANT = "classic" in both packages, float32 as
+    in test_train_step_matches_jax_f32 and at its tolerances: every hash
+    encode runs `hash_encode_onehot` at the table's own F (the dynamic
+    planes one call per variant, the flow grid encoding before interpT), and
+    no encode folds interpT into a table."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
+    monkeypatch.setattr(jho, "ONEHOT_VARIANT", "classic")
+    monkeypatch.setattr(tho, "ONEHOT_VARIANT", "classic")
+    onehot, folds = [], []
+    fns = {name: getattr(mod, name) for mod, name in (
+        (tho, "hash_encode_onehot"), (tho, "hash_encode_folded"),
+        (thash_mod, "hash_encode_fact_multi_folded"))}
+    monkeypatch.setattr(tho, "hash_encode_onehot", lambda *a: (
+        onehot.append(a[0]), fns["hash_encode_onehot"](*a))[1])
+    monkeypatch.setattr(tho, "hash_encode_folded", lambda *a: (
+        folds.append(a[0]), fns["hash_encode_folded"](*a))[1])
+    monkeypatch.setattr(thash_mod, "hash_encode_fact_multi_folded", lambda *a: (
+        folds.append(a[0]), fns["hash_encode_fact_multi_folded"](*a))[1])
+    try:
+        result = _run_both(scene, fields)
+    finally:
+        jax.clear_caches()
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
+                          "raydrop": F32_ATTR_GRAD_TOL})
+    # per loss: 2 density calls x (static + 3 planes x 3 variants + flow grid)
+    # + the flow loss's 2 flow-net calls; the step's loss runs twice
+    assert not folds and len(onehot) == 2 * (2 * (1 + 9 + 1) + 2)
+    assert {spec.n_features for spec in onehot} == {8}
+
+
+def test_train_step_matches_jax_f32(scene, fields, monkeypatch):
+    """The reference's plane_linear swapped for a float32 lerp and both
+    packages' MLPs in float32: float32-level agreement of the loss, every
+    metric, every gradient leaf and the post-step parameters. The JAX step
+    is traced afresh under the patch and the caches are cleared after."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
     try:
         result = _run_both(scene, fields)
     finally:
