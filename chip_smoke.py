@@ -46,8 +46,10 @@ Phases (each prints a start line):
   classic  under hash_onehot.ONEHOT_VARIANT = "classic" (the reference's
            A/B switch): the classic route's hash_grid cases at the train
            step's per-call sizes, one classic step against one fact step on
-           the card (uniform sampling, float32 MLPs), then 1 warm-up and 3
-           timed flagship steps with ms/step, losses and launches per step.
+           the card (uniform sampling, float32 MLPs, the classic step on the
+           fact step's ReLU masks), then 1 warm-up and 3 timed flagship
+           steps with ms/step, losses and launches per step, and one step
+           under torch.profiler.
 
 The kernels line (the line before the device's name) is a JSON object with
 each kernel's numbers. For the six kernels of the train step they are taken
@@ -136,7 +138,10 @@ KERNEL_STEP_GRAD_RTOL = {"flow": 8e-4, "hash": 8e-6, "planes": 2e-5, "sigma": 3e
                          "intensity": 4e-6, "raydrop": 2e-6}
 # classic vs fact on the card: loss 0; gradients at most 3.3e-7 over two
 # runs (flow 1.9e-7 then 3.3e-7, every other group <= 2.3e-7): the order of
-# float32 sums alone (the fold, and atomics that add in another order)
+# float32 sums alone (the fold, and atomics that add in another order). The
+# classic step runs on the fact step's ReLU masks: one hidden pre-activation
+# within rounding of 0 whose sign differs between the two moves a gradient
+# leaf by up to 1.3e-4 (float32_mlps_sharing_relu_masks)
 CLASSIC_STEP_RTOL = 1e-6
 CLASSIC_GRAD_RTOL = {"flow": 4e-6, "hash": 4e-6, "planes": 4e-6, "sigma": 4e-6,
                      "intensity": 4e-6, "raydrop": 4e-6}
@@ -583,6 +588,54 @@ def mlp_dtype(dtype):
         lidar4d.apply_mlp, flow_field.apply_mlp = saved
 
 
+@contextlib.contextmanager
+def float32_mlps_sharing_relu_masks(masks, record):
+    """Run the field's MLPs in float32 (as mlp_dtype(torch.float32)), with
+    `record` appending every call's hidden ReLU masks (pre-activation > 0) to
+    `masks`, else applying masks[i] to the i-th call in place of its own (the
+    same calls in the same order). Two steps whose pre-activations differ by
+    float32 rounding alone then differentiate the same piecewise-linear MLPs:
+    a pre-activation within rounding of 0 that changes sign between them
+    would move its sample's whole share of the MLP gradients (on the H100 one
+    such sign moved a leaf by up to 1.3e-4 of its largest entry,
+    scripts/classic_vs_fact_ties.py). Yields a
+    dict whose "flipped" counts the replayed pre-activations whose own sign
+    differs from the recorded mask."""
+    from lidar4d_tpu_torch.models import flow_field, lidar4d
+
+    calls = iter(masks)
+    stats = {"flipped": 0, "masked": 0}
+
+    def apply(params, x):
+        layer_masks = [] if record else next(calls)
+        if record:
+            masks.append(layer_masks)
+        h = x.float()
+        for li, w in enumerate(params):
+            h = h @ w.float()
+            if li == len(params) - 1:
+                break
+            own = h.detach() > 0
+            if record:
+                layer_masks.append(own)
+            elif layer_masks[li].shape != own.shape:
+                raise AssertionError(f"MLP call shapes differ: {tuple(own.shape)} after "
+                                     f"{tuple(layer_masks[li].shape)}")
+            stats["flipped"] += int((own != layer_masks[li]).sum())
+            stats["masked"] += own.numel()
+            h = h * layer_masks[li]
+        return h
+
+    saved = lidar4d.apply_mlp, flow_field.apply_mlp
+    lidar4d.apply_mlp = flow_field.apply_mlp = apply
+    try:
+        yield stats
+    finally:
+        lidar4d.apply_mlp, flow_field.apply_mlp = saved
+    if not record and next(calls, None) is not None:
+        raise AssertionError("the replaying step made fewer MLP calls than the recorded one")
+
+
 def profile_render(sim, rays_o, rays_d, times):
     """Device time by kernel over one frame's render (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -889,13 +942,12 @@ def profile_step(step, state, frame, cache):
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
 
 
-def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classic=False,
-          profile=True):
+def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classic=False):
     """warmup + timed flagship train steps from `params` (updated in place),
     bfloat16 MLPs, the flow loss on, each step's kernel launches checked
-    against `launches_per_step`; then, with `profile`, one step under the
-    profiler. Returns (launch counts of all steps, mean ms/step of the timed
-    steps, their losses)."""
+    against `launches_per_step`; then one step under the profiler. Returns
+    (launch counts of all steps, mean ms/step of the timed steps, their
+    losses)."""
     from lidar4d_tpu_torch.ops import _cuda
     from lidar4d_tpu_torch.train.losses import LossConfig
     from lidar4d_tpu_torch.train.train_step import (
@@ -940,8 +992,7 @@ def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classi
         if launches[name] != per_step * n_steps:
             raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
                                  f"expected {per_step} per step")
-    if profile:
-        profile_step(step, state, frames[0], fc)
+    profile_step(step, state, frames[0], fc)
     return launches, step_s * 1e3, losses[warmup:]
 
 
@@ -1065,17 +1116,20 @@ def check_classic(field, params, ds, cache, opt, dev):
         summary = check_train_kernels(field, params, ds, cache, opt, dev, classic=True)
     signal = signal_params(params)
     sampling = dict(num_steps=UNIFORM_STEPS)
-    with mlp_dtype(torch.float32):
-        with onehot_variant("fact"):
-            fact = step_grads(field, signal, ds, cache, sampling)
-        with onehot_variant("classic"):
-            classic = step_grads(field, signal, ds, cache, sampling, draws=fact[3])
+    masks = []
+    with onehot_variant("fact"), float32_mlps_sharing_relu_masks(masks, record=True):
+        fact = step_grads(field, signal, ds, cache, sampling)
+    with (onehot_variant("classic"),
+          float32_mlps_sharing_relu_masks(masks, record=False) as relu):
+        classic = step_grads(field, signal, ds, cache, sampling, draws=fact[3])
+    print(f"  classic vs fact: the classic step ran on the fact step's ReLU masks; "
+          f"{relu['flipped']} of its {relu['masked']} hidden pre-activations had the other "
+          f"sign", flush=True)
     compare_steps("classic vs fact", field, signal, classic, fact, CLASSIC_STEP_RTOL,
                   CLASSIC_GRAD_RTOL, post_step=False)
     with onehot_variant("classic"):
         launches, ms, losses = train(field, field.init(seed=SEED), ds, cache, opt, dev,
-                                     CLASSIC_WARMUP, CLASSIC_TIMED, classic=True,
-                                     profile=False)
+                                     CLASSIC_WARMUP, CLASSIC_TIMED, classic=True)
     return summary, launches, ms, losses
 
 

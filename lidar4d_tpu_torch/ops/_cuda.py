@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -39,14 +40,23 @@ _SIGNATURES = {
     # grid, x, out, n_planes, n, channels, width, stream
     "plane_linear_fwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, cot, levels, dtab, n_variants, n, n_levels, n_dims, n_features, rows,
-    # smem_floats, stream
-    "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _P),
+    # run, smem_floats, stream
+    "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P),
     # pts, cot, dgrid, n_planes, n, channels, height, width, stream
     "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, stream
-    "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, run, copy,
+    # stream
+    "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # grid, pts, cot, dgrid, dpts, n_planes, n, channels, height, width, stream
     "plane_bilinear_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+# Occupancy queries of the persistent kernels (resident blocks per SM; no
+# launch): hash_grid_bwd (n_dims, n_features, smem_floats) and
+# plane_linear_bwd (channels, width, copy).
+_QUERIES = {
+    "hash_grid_bwd_blocks_per_sm": (_I, _I, _I),
+    "plane_linear_bwd_blocks_per_sm": (_I, _I, _I),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -104,7 +114,7 @@ def library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, f"lidar4d_{name}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -138,6 +148,33 @@ def launch(name, device, *args):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def persistent_run(n, groups, n_grids, min_run, sms, blocks_per_sm, waves=1):
+    """Consecutive points each lane group takes in a persistent kernel whose
+    blocks hold `groups` lane groups, launched as `n_grids` independent
+    grids (levels x variants, tables) of ceil(n / (groups x run)) blocks:
+    together at most `waves` resident waves of the card (waves x sms x
+    blocks_per_sm blocks), and no group takes fewer than `min_run` points (a
+    short call gets fewer blocks, at least one a grid)."""
+    most = -(-n // (groups * min_run))
+    blocks = max(1, min(most, waves * sms * blocks_per_sm // n_grids))
+    return max(min_run, -(-n // (blocks * groups)))
+
+
+@lru_cache(maxsize=None)
+def blocks_per_sm(query, *args):
+    """Resident blocks per SM of a persistent kernel (`_QUERIES`), from the
+    CUDA occupancy calculator for its registers, threads and shared memory."""
+    blocks = getattr(library(), f"lidar4d_{query}")(*args)
+    if blocks < 1:
+        raise RuntimeError(f"occupancy query {query}{args} failed: {blocks}")
+    return blocks
+
+
+@lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_device(device) -> torch.device:

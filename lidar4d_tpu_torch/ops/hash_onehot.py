@@ -133,10 +133,23 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     return out
 
 
+# The persistent grid of `hash_grid_bwd` (csrc/hash_grid_bwd.cu): threads a
+# block (the kernel's kThreads), the fewest consecutive points a group of F
+# lanes takes, the resident waves the grid fills (2 ran 3% faster than 1 on
+# the H100, see PERF.md), and the largest level slice rows_l * F it
+# accumulates in shared memory (64 KB).
+HASH_BWD_THREADS = 512
+HASH_BWD_MIN_RUN = 4
+HASH_BWD_WAVES = 2
+HASH_BWD_SMEM_FLOATS = 16384
+
+
 def _smem_floats(spec: HashEncoderSpec):
     """The kernel's shared-memory accumulator: the largest level slice
-    rows_l * F that fits its 64 KB (16384 floats), else 0."""
-    fits = [r * spec.n_features for r in spec.table_sizes if r * spec.n_features <= 16384]
+    rows_l * F that fits HASH_BWD_SMEM_FLOATS, else 0; a level above it adds
+    to the global gradient directly."""
+    fits = [r * spec.n_features for r in spec.table_sizes
+            if r * spec.n_features <= HASH_BWD_SMEM_FLOATS]
     return max(fits, default=0)
 
 
@@ -178,15 +191,20 @@ def hash_grid_bwd(spec: HashEncoderSpec, xs, cot, n_tables=None):
         raise ValueError(f"hash_grid_bwd kernel does not take {spec}")
     _cuda.check_cuda_tensor("xs", xs)
     _cuda.check_cuda_tensor("cot", cot)
-    cot = _cuda.aligned(cot)
     dtab = torch.zeros((n_tables, spec.n_rows, spec.n_features), dtype=torch.float32,
                        device=xs.device)
     if n == 0:
         return dtab
     levels = _level_table(spec, xs.device)
+    smem = _smem_floats(spec)
+    bps = _cuda.blocks_per_sm("hash_grid_bwd_blocks_per_sm", spec.n_dims, spec.n_features,
+                              smem)
+    run = _cuda.persistent_run(n, HASH_BWD_THREADS // spec.n_features, spec.n_levels * v,
+                               HASH_BWD_MIN_RUN, _cuda.sm_count(xs.device), bps,
+                               HASH_BWD_WAVES)
     _cuda.launch("hash_grid_bwd", xs.device, xs.data_ptr(), cot.data_ptr(),
                  levels.data_ptr(), dtab.data_ptr(), v, n, spec.n_levels, spec.n_dims,
-                 spec.n_features, spec.n_rows, _smem_floats(spec))
+                 spec.n_features, spec.n_rows, run, smem)
     return dtab
 
 

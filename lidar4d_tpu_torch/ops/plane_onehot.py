@@ -240,6 +240,22 @@ def plane_linear_fwd(grid, x):
     return out
 
 
+# The launch of `plane_linear_bwd` (csrc/plane_linear_bwd.cu): threads a
+# block (the kernel's kThreads), the fewest consecutive points a group of C
+# lanes takes, and the shared memory a block may take (the kernel's
+# kSmemLimit, the H100's 227 KB).
+LIN_BWD_THREADS = 256
+LIN_BWD_MIN_RUN = 16
+LIN_BWD_SMEM_LIMIT = 227 * 1024
+
+
+def plane_linear_bwd_table_copy(c, w):
+    """Whether `plane_linear_bwd` reads the table from a copy in shared
+    memory beside its [W][C] gradient (2 x C x W floats in all) for C
+    channels and W columns, or through L1 where both do not fit."""
+    return 2 * c * w * 4 <= LIN_BWD_SMEM_LIMIT
+
+
 def plane_linear_bwd_plain(grid, x, cot, lead=0):
     """Plain version of `plane_linear_bwd`: autograd of `plane_linear_plain`,
     with the coordinate gradient of the first `lead` tables set to zero."""
@@ -267,13 +283,16 @@ def plane_linear_bwd(grid, x, cot, lead=0):
         raise ValueError(f"plane_linear kernel takes C in {_KERNEL_CHANNELS}, got {c}")
     for name, t in (("grid", grid), ("x", x), ("cot", cot)):
         _cuda.check_cuda_tensor(name, t)
-    cot = _cuda.aligned(cot)
     dgrid = torch.zeros((p, c, w), dtype=torch.float32, device=x.device)
     dx = torch.empty((p, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return dgrid, dx
+    copy = int(plane_linear_bwd_table_copy(c, w))
+    bps = _cuda.blocks_per_sm("plane_linear_bwd_blocks_per_sm", c, w, copy)
+    run = _cuda.persistent_run(n, LIN_BWD_THREADS // c, p, LIN_BWD_MIN_RUN,
+                               _cuda.sm_count(x.device), bps)
     _cuda.launch("plane_linear_bwd", x.device, grid.data_ptr(), x.data_ptr(), cot.data_ptr(),
-                 dgrid.data_ptr(), dx.data_ptr(), p, n, c, w, lead)
+                 dgrid.data_ptr(), dx.data_ptr(), p, n, c, w, lead, run, copy)
     return dgrid, dx
 
 

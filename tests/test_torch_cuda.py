@@ -279,3 +279,84 @@ def test_backward_kernels_on_ray_ordered_points(dev):
     for got, want in zip(po.plane_linear_bwd(grid, x, cot, 3),
                          po.plane_linear_bwd_plain(grid, x, cot, 3)):
         assert _rel(got, want) <= GRAD_RTOL
+
+
+# Edges of the persistent backward kernels: every point on one row or column
+# (the longest register runs and the worst same-address collisions), a single
+# point, one point either side of a block's share of points, enough points that
+# each persistent block walks several tiles, a level too large for shared
+# memory, and a table whose copy does not fit beside its gradient there.
+_STATIC = HashEncoderSpec(3, 6, 8, 11, 64, 2048)       # flagship static hash
+_DYNAMIC = HashEncoderSpec(2, 6, 2, 10, 64, 2048)      # flagship dynamic, folded
+_LARGE = HashEncoderSpec(3, 2, 8, 14, 4, 64)           # a level too large for shared memory
+
+
+def _hash_share(spec):
+    """Points a block of hash_grid_bwd takes at the minimum run."""
+    return ho.HASH_BWD_THREADS // spec.n_features * ho.HASH_BWD_MIN_RUN
+
+
+@pytest.mark.parametrize("spec,n,layout", [
+    (_STATIC, 5000, "one cell"),
+    (_DYNAMIC, 5000, "one cell"),
+    (_STATIC, 1, "uniform"),
+    (_STATIC, _hash_share(_STATIC) - 1, "uniform"),
+    (_STATIC, _hash_share(_STATIC) + 1, "uniform"),
+    (_DYNAMIC, _hash_share(_DYNAMIC) - 1, "uniform"),
+    (_DYNAMIC, _hash_share(_DYNAMIC) + 1, "uniform"),
+    (_STATIC, (1 << 20) + 3, "rays"),
+    (_LARGE, 7000, "rays"),
+], ids=lambda v: v if isinstance(v, str) else str(v))
+def test_hash_grid_bwd_edges(dev, spec, n, layout):
+    """Against the plain version, two variants scattered into three tables
+    (the third gets a zero gradient)."""
+    if layout == "one cell":
+        xs = torch.full((2, n, spec.n_dims), 0.3712, device=dev)
+    elif layout == "rays":
+        pts = _ray_points(dev, -(-n // 256), 256, seed=40)[:n]
+        xs = torch.stack([pts[:, :spec.n_dims], pts[:, -spec.n_dims:]]).contiguous()
+    else:
+        xs = _rand(dev, 2, n, spec.n_dims, seed=41)
+    cot = _rand(dev, 2, n, spec.n_output_dims, lo=-1, hi=1, seed=42)
+    before = _cuda.LAUNCHES["hash_grid_bwd"]
+    got = ho.hash_grid_bwd(spec, xs, cot, n_tables=3)
+    assert _cuda.LAUNCHES["hash_grid_bwd"] == before + 1
+    assert _rel(got[:2], ho.hash_grid_bwd_plain(spec, xs, cot)) <= GRAD_RTOL
+    assert not got[2:].any()
+
+
+def _lin_share(c):
+    """Points a block of plane_linear_bwd takes at the minimum run."""
+    return po.LIN_BWD_THREADS // c * po.LIN_BWD_MIN_RUN
+
+
+@pytest.mark.parametrize("c,w,n,layout", [
+    (8, 256, 5000, "one column"),
+    (8, 32, 1, "uniform"),
+    (8, 64, _lin_share(8) - 1, "uniform"),
+    (8, 64, _lin_share(8) + 1, "uniform"),
+    (8, 128, (1 << 20) + 3, "rays"),
+    (4, 32, 1001, "uniform"),          # N % 4 != 0: rows of x start unaligned
+    (4, 32, 4 * _lin_share(4) + 3, "uniform"),
+    (16, 2048, 9000, "uniform"),       # table copy and gradient too large for shared memory
+    (16, 3584, 9000, "uniform"),       # the largest C * W: the gradient takes 224 KB
+], ids=str)
+def test_plane_linear_bwd_edges(dev, c, w, n, layout):
+    """Against the plain version, 9 tables with lead 3, points off [0, 1]
+    and on its ends included."""
+    grid = _rand(dev, 9, c, w, lo=0.1, hi=1.0, seed=43)
+    if layout == "one column":
+        x = torch.full((9, n), 0.4123, device=dev)
+    elif layout == "rays":
+        x = _ray_points(dev, -(-n // 256), 256, seed=44)[:n].T.repeat(3, 1).contiguous()
+    else:
+        x = _rand(dev, 9, n, lo=-0.1, hi=1.1, seed=45)
+        x[:, :2] = torch.tensor([0.0, 1.0], device=dev)[: min(n, 2)]
+    cot = _rand(dev, 9, n, c, lo=-1, hi=1, seed=46)
+    before = _cuda.LAUNCHES["plane_linear_bwd"]
+    dg, dx = po.plane_linear_bwd(grid, x, cot, 3)
+    assert _cuda.LAUNCHES["plane_linear_bwd"] == before + 1
+    want_dg, want_dx = po.plane_linear_bwd_plain(grid, x, cot, 3)
+    assert _rel(dg, want_dg) <= GRAD_RTOL
+    assert not dx[:3].any()
+    assert _rel(dx, want_dx) <= GRAD_RTOL
