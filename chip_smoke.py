@@ -17,7 +17,8 @@ Phases (each prints a start line):
            float32 MLPs, and show that a one-row / one-pixel read fault in any
            kernel would move it well past the tolerance; then render 2 novel
            frames at 66x1030 through Simulator.render with the U-Net refine,
-           counting kernel launches, and profile one frame;
+           counting kernel launches, and profile one frame (device ms by
+           kernel group, hash_grid_fwd's per 16,384-ray chunk);
   scene    write the synthetic 66x1030x51 scene (seed 0) to a temporary
            directory and build the flow-loss cache (at most 65,536 points a
            frame) for the frames the train steps touch and their +-2
@@ -637,7 +638,8 @@ def float32_mlps_sharing_relu_masks(masks, record):
 
 
 def profile_render(sim, rays_o, rays_d, times):
-    """Device time by kernel over one frame's render (torch.profiler)."""
+    """Device time by kernel over one frame's render (torch.profiler).
+    Returns the device ms by group and hash_grid_fwd's launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -669,6 +671,7 @@ def profile_render(sim, rays_o, rays_d, times):
           flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    return groups, sum(count for key, count, _ in rows if "hash_grid_fwd" in key.lower())
 
 
 def make_scene(root):
@@ -1144,7 +1147,7 @@ def main():
     from lidar4d_tpu_torch.cli.config import build_model_config, get_arg_parser
     from lidar4d_tpu_torch.interop import tree_to_torch
     from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
-    from lidar4d_tpu_torch.models.renderer import render_rays
+    from lidar4d_tpu_torch.models.renderer import render_frames_staged, render_rays
     from lidar4d_tpu_torch.ops import _cuda
     from lidar4d_tpu_torch.sim.simulator import Simulator, build_novel_rays
 
@@ -1272,7 +1275,11 @@ def main():
     steady_s = time.perf_counter() - t_steady
     print(f"  second render: {steady_s:.3f} s, {steady_s / 2:.3f} s/frame; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_render(sim, rays_o[:1], rays_d[:1], times[:1])
+    groups, hash_launches = profile_render(sim, rays_o[:1], rays_d[:1], times[:1])
+    ray_chunk = inspect.signature(render_frames_staged).parameters["chunk"].default
+    print(f"  hash_grid_fwd in the profiled frame: {groups['hash_grid_fwd']:.3f} ms device time, "
+          f"{hash_launches} launches, {groups['hash_grid_fwd'] * ray_chunk / (H * W):.3f} ms a "
+          f"{ray_chunk}-ray chunk ({H * W} rays a frame)", flush=True)
     seconds["slice"] = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as root:

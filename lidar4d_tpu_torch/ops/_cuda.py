@@ -33,8 +33,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, tables, levels, out, n_variants, n, n_levels, n_dims, n_features, rows, stream
-    "hash_grid_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _P),
+    # x, tables, levels, out, n_variants, n, n_levels, n_dims, n_features, rows,
+    # table_floats, threads, tile, carveout, run, stream
+    "hash_grid_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _I,
+                      _I, _P),
     # grid, pts, out, n_planes, n, channels, height, width, stream
     "plane_bilinear_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grid, x, out, n_planes, n, channels, width, stream
@@ -42,8 +44,9 @@ _SIGNATURES = {
     # x, cot, levels, dtab, n_variants, n, n_levels, n_dims, n_features, rows,
     # run, smem_floats, stream
     "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P),
-    # pts, cot, dgrid, n_planes, n, channels, height, width, stream
-    "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # pts, cot, dgrid, n_planes, n, channels, height, width, slice, run, stride,
+    # stream
+    "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, run, copy,
     # stream
     "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -52,10 +55,14 @@ _SIGNATURES = {
 }
 
 # Occupancy queries of the persistent kernels (resident blocks per SM; no
-# launch): hash_grid_bwd (n_dims, n_features, smem_floats) and
+# launch): hash_grid_fwd (n_dims, n_levels, n_features, table_floats,
+# threads, tile, carveout), hash_grid_bwd (n_dims, n_features, smem_floats),
+# plane_bilinear_bwd (channels, slice, height, width, stride) and
 # plane_linear_bwd (channels, width, copy).
 _QUERIES = {
+    "hash_grid_fwd_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),
     "hash_grid_bwd_blocks_per_sm": (_I, _I, _I),
+    "plane_bilinear_bwd_blocks_per_sm": (_I, _I, _I, _I, _I),
     "plane_linear_bwd_blocks_per_sm": (_I, _I, _I),
 }
 

@@ -38,6 +38,7 @@ autograd carries the folded table's gradient back through the fold.
 
 import dataclasses
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -101,6 +102,85 @@ def hash_grid_fwd_plain(spec: HashEncoderSpec, tables, xs):
     return torch.stack([hash_encode(spec, t, x) for t, x in zip(tables, xs)])
 
 
+# The launch of `hash_grid_fwd` (csrc/hash_grid_fwd.cu): points a tile on
+# the tile path and on the gather path (one a thread; the kernel's
+# kMaxThreads at most), the shared memory a block may take (its kSmemLimit,
+# the H100's 227 KB), the fewest points (N x V) a call needs for the tile
+# path, the SM's unified L1 / shared memory and the L1 a tile launch that
+# gathers through L1 keeps, whether tables may be staged and tiles used at
+# all (the variants PERF.md times), and the fewest tiles a staging block
+# takes (a persistent grid fills one resident wave).
+HASH_FWD_THREADS = 256
+HASH_FWD_GATHER_THREADS = 128
+HASH_FWD_MAX_THREADS = 512
+HASH_FWD_SMEM_LIMIT = 227 * 1024
+HASH_FWD_MIN_POINTS = 65536
+HASH_FWD_SM_SMEM = 228 * 1024
+HASH_FWD_BLOCK_RESERVE = 2048      # 1 KB the driver reserves and the kernel's static arrays
+HASH_FWD_L1_KEEP = 96 * 1024
+HASH_FWD_STAGE = True
+HASH_FWD_TILE = True
+HASH_FWD_MIN_RUN = 2
+
+
+class FwdLaunch(NamedTuple):
+    """One launch of `hash_grid_fwd`: floats of the table staged in shared
+    memory (0: rows gathered through L1), points a tile, whether the outputs
+    go through the shared-memory tile, the SM's shared-memory share in
+    percent (-1: the driver's choice), and the fewest tiles a block of the
+    persistent grid takes (None: a grid of one tile a block)."""
+    table_floats: int
+    threads: int
+    tile: bool
+    carveout: int
+    min_run: Optional[int]
+
+
+def hash_fwd_tile_pitch(levels, features):
+    """Floats a point takes in the kernel's output tile for `levels` levels
+    of `features` features: levels x features rounded up to 4, plus 4 where
+    that is a multiple of 8 (distinct banks for eight 16-byte stores)."""
+    w = -(-levels * features // 4) * 4
+    return w + 4 if w % 8 == 0 else w
+
+
+def hash_fwd_table_floats(spec: HashEncoderSpec):
+    """Floats a table of `spec` takes in shared memory, each level rounded
+    up to 4 floats (the kernel's 16-byte bulk copies)."""
+    return sum(-(-r * spec.n_features // 4) * 4 for r in spec.table_sizes)
+
+
+def hash_fwd_launch(spec: HashEncoderSpec, n_points):
+    """The `FwdLaunch` of `hash_grid_fwd` for a call on n_points = N x V
+    points of `spec`.
+
+    The gather path, the earlier design's launch (rows through L1, each
+    thread storing its own point's outputs, HASH_FWD_GATHER_THREADS points a
+    block, one tile a block, the driver's choice of shared memory), serves a call
+    of fewer than HASH_FWD_MIN_POINTS points, which cannot spread a block's
+    fixed costs, and a spec whose point output is one 32-byte sector or
+    less written by 16-byte stores (F % 4 == 0, L x F <= 8), which a thread
+    writes whole already. Every other call takes the tile path: tiles of
+    HASH_FWD_THREADS points whose outputs go through shared memory, with the
+    whole table staged in shared memory beside the tile where both fit
+    (bulk copies, all of the SM's fast memory shared, at least
+    HASH_FWD_MIN_RUN tiles a block of a persistent grid), else with rows
+    gathered through L1 and a shared-memory share that leaves
+    HASH_FWD_L1_KEEP bytes of L1 (at least one block's)."""
+    f = spec.n_features
+    one_sector = f % 4 == 0 and spec.n_output_dims <= 8
+    if n_points < HASH_FWD_MIN_POINTS or one_sector or not HASH_FWD_TILE:
+        return FwdLaunch(0, HASH_FWD_GATHER_THREADS, False, -1, None)
+    tile_floats = HASH_FWD_THREADS * hash_fwd_tile_pitch(spec.n_levels, f)
+    table = hash_fwd_table_floats(spec)
+    if HASH_FWD_STAGE and (table + tile_floats) * 4 <= HASH_FWD_SMEM_LIMIT:
+        return FwdLaunch(table, HASH_FWD_THREADS, True, 100, HASH_FWD_MIN_RUN)
+    block = tile_floats * 4 + HASH_FWD_BLOCK_RESERVE
+    blocks = max(1, (HASH_FWD_SM_SMEM - HASH_FWD_L1_KEEP) // block)
+    carveout = min(100, -(-100 * blocks * block // HASH_FWD_SM_SMEM))
+    return FwdLaunch(0, HASH_FWD_THREADS, True, carveout, 1)
+
+
 def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     """Encode V point sets through V tables of one spec.
 
@@ -127,9 +207,18 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     if n == 0:
         return out
     levels = _level_table(spec, xs.device)
+    plan = hash_fwd_launch(spec, n * v)
+    run = 1
+    if plan.min_run is not None:
+        bps = _cuda.blocks_per_sm("hash_grid_fwd_blocks_per_sm", spec.n_dims, spec.n_levels,
+                                  spec.n_features, plan.table_floats, plan.threads,
+                                  int(plan.tile), plan.carveout)
+        run = _cuda.persistent_run(n, plan.threads, v, plan.min_run, _cuda.sm_count(xs.device),
+                                   bps)
     _cuda.launch("hash_grid_fwd", xs.device, xs.data_ptr(), tables.data_ptr(),
                  levels.data_ptr(), out.data_ptr(), v, n, spec.n_levels, spec.n_dims,
-                 spec.n_features, spec.n_rows)
+                 spec.n_features, spec.n_rows, plan.table_floats, plan.threads, int(plan.tile),
+                 plan.carveout, run)
     return out
 
 

@@ -87,6 +87,50 @@ def plane_bilinear_bwd_plain(pts, cot, hw):
     return dgrid
 
 
+# The launch of `plane_bilinear_bwd` (csrc/plane_bilinear_bwd.cu): threads a
+# block (the kernel's kThreads), points a lane group loads at once (its
+# kChunk; runs are multiples of it), the fewest consecutive points a group
+# takes, the shared memory a block may take (its kSmemLimit, the H100's
+# 227 KB), the shared memory a block's channel slice should stay within so
+# that several blocks share an SM, and the resident waves the grid fills.
+PLANE_BWD_THREADS = 512
+PLANE_BWD_CHUNK = 8
+PLANE_BWD_MIN_RUN = 16
+PLANE_BWD_SMEM_LIMIT = 227 * 1024
+PLANE_BWD_SLICE_BYTES = PLANE_BWD_SMEM_LIMIT // 3
+PLANE_BWD_WAVES = 1
+_SLICES = (16, 8, 4, 2, 1)
+
+
+def plane_bilinear_bwd_stride(h, w):
+    """Floats a channel takes in the kernel's shared accumulator: H x W
+    rounded up to 4, plus 4 (channels start on different banks)."""
+    return -(-h * w // 4) * 4 + 4
+
+
+def plane_bilinear_bwd_slice(c, h, w, slice_bytes=None):
+    """Channels a block of `plane_bilinear_bwd` accumulates in shared memory
+    for C channels of H x W: the most (a power of two dividing C) whose
+    accumulator fits `slice_bytes` (default PLANE_BWD_SLICE_BYTES), else
+    one channel if it fits the 227 KB at all, else 0: the global path."""
+    slice_bytes = PLANE_BWD_SLICE_BYTES if slice_bytes is None else slice_bytes
+    floats = plane_bilinear_bwd_stride(h, w)
+    for cb in _SLICES:
+        if cb <= c and c % cb == 0 and cb * floats * 4 <= slice_bytes:
+            return cb
+    return 1 if floats * 4 <= PLANE_BWD_SMEM_LIMIT else 0
+
+
+def plane_bilinear_bwd_run(n, c, cb, n_planes, sms, blocks_per_sm):
+    """Consecutive points a lane group of `plane_bilinear_bwd` takes: the
+    persistent run for P x C / cb slices (cb = 0: the global path's groups of
+    min(C, 8) lanes), rounded up to a multiple of PLANE_BWD_CHUNK."""
+    lanes = cb or min(c, 8)
+    run = _cuda.persistent_run(n, PLANE_BWD_THREADS // lanes, n_planes * (c // lanes),
+                               PLANE_BWD_MIN_RUN, sms, blocks_per_sm, PLANE_BWD_WAVES)
+    return -(-run // PLANE_BWD_CHUNK) * PLANE_BWD_CHUNK
+
+
 def plane_bilinear_bwd(pts, cot, hw):
     """Plane gradient of `plane_bilinear_fwd`: pts [P, N, 2], cot [P, C, N],
     hw = (H, W) -> dG [P, C, H, W] float32."""
@@ -100,11 +144,16 @@ def plane_bilinear_bwd(pts, cot, hw):
     _cuda.check_cuda_tensor("pts", pts)
     _cuda.check_cuda_tensor("cot", cot)
     pts = _cuda.aligned(pts, 8)
-    dgrid = torch.zeros((p, c, *hw), dtype=torch.float32, device=pts.device)
+    h, w = hw
+    dgrid = torch.zeros((p, c, h, w), dtype=torch.float32, device=pts.device)
     if n == 0:
         return dgrid
+    cb = plane_bilinear_bwd_slice(c, h, w)
+    stride = plane_bilinear_bwd_stride(h, w)
+    bps = _cuda.blocks_per_sm("plane_bilinear_bwd_blocks_per_sm", c, cb, h, w, stride)
+    run = plane_bilinear_bwd_run(n, c, cb, p, _cuda.sm_count(pts.device), bps)
     _cuda.launch("plane_bilinear_bwd", pts.device, pts.data_ptr(), cot.data_ptr(),
-                 dgrid.data_ptr(), p, n, c, hw[0], hw[1])
+                 dgrid.data_ptr(), p, n, c, h, w, cb, run, stride)
     return dgrid
 
 

@@ -360,3 +360,96 @@ def test_plane_linear_bwd_edges(dev, c, w, n, layout):
     assert _rel(dg, want_dg) <= GRAD_RTOL
     assert not dx[:3].any()
     assert _rel(dx, want_dx) <= GRAD_RTOL
+
+
+# The redesigned plane_bilinear_bwd: a channel slice a block in shared memory
+# (32^2 x 8, 64^2 x 4, 128^2 x 1 at C = 8; the whole 227 KB for one block:
+# 64^2 x 8, 128^2 x 2), the global path at 256^2, a ragged 5 x 17 plane;
+# every point on one pixel (the longest register runs and the worst
+# collisions), coordinates off [0, 1] and on integers, ray-ordered points
+# with N % 4 == 0 (16-byte loads) and N % 4 != 0, and N = 1.
+def _plane_points(dev, n, layout, seed):
+    if layout == "one pixel":
+        return torch.tensor([0.3712, 0.6123], device=dev).expand(3, n, 2).contiguous()
+    if layout == "rays":
+        pts = _ray_points(dev, -(-n // 256), 256, seed=seed)[:n]
+        return torch.stack([pts[:, [0, 1]], pts[:, [0, 2]], pts[:, [1, 2]]]).contiguous()
+    return _edge_points(dev, 3, n, 64, 64, seed=seed)[:, :n].contiguous() if n >= 70 \
+        else _rand(dev, 3, n, 2, lo=-0.1, hi=1.1, seed=seed)
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (64, 64), (128, 128), (256, 256), (5, 17)], ids=str)
+@pytest.mark.parametrize("n,layout", [
+    (7000, "uniform"), (5000, "one pixel"), (262_144, "rays"), (262_147, "rays"), (1, "uniform"),
+], ids=str)
+def test_plane_bilinear_bwd_edges(dev, hw, n, layout):
+    pts = _plane_points(dev, n, layout, seed=50)
+    cot = _rand(dev, 3, 8, n, lo=-1, hi=1, seed=51)
+    before = _cuda.LAUNCHES["plane_bilinear_bwd"]
+    got = po.plane_bilinear_bwd(pts, cot, hw)
+    assert _cuda.LAUNCHES["plane_bilinear_bwd"] == before + 1
+    assert _rel(got, po.plane_bilinear_bwd_plain(pts, cot, hw)) <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("c", [4, 16])
+@pytest.mark.parametrize("hw", [(32, 32), (128, 128), (256, 256)], ids=str)
+def test_plane_bilinear_bwd_channels(dev, c, hw):
+    pts = _plane_points(dev, 9001, "uniform", seed=52)
+    cot = _rand(dev, 3, c, 9001, lo=-1, hi=1, seed=53)
+    assert _rel(po.plane_bilinear_bwd(pts, cot, hw), po.plane_bilinear_bwd_plain(pts, cot, hw)) \
+        <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (128, 128)], ids=str)
+def test_plane_bilinear_bwd_whole_shared_memory(dev, hw, monkeypatch):
+    """The slice variant that gives one block all 227 KB (64^2 x 8, 128^2 x 2)."""
+    monkeypatch.setattr(po, "PLANE_BWD_SLICE_BYTES", po.PLANE_BWD_SMEM_LIMIT)
+    pts = _plane_points(dev, 131_072, "rays", seed=54)
+    cot = _rand(dev, 3, 8, 131_072, lo=-1, hi=1, seed=55)
+    assert po.plane_bilinear_bwd_slice(8, *hw) in (8, 2)
+    assert _rel(po.plane_bilinear_bwd(pts, cot, hw), po.plane_bilinear_bwd_plain(pts, cot, hw)) \
+        <= GRAD_RTOL
+
+
+# The redesigned hash_grid_fwd: every (d, F) the kernel takes with V = 3,
+# dense and hashed levels and N not a multiple of the tile, on each path
+# (N = 3 x 256 + 17: the gather path; 30,001: the tile path, the table
+# staged in shared memory where it fits), in the variants that never stage,
+# never tile or take 512 points a tile; a level of KERNEL_MAX_ROWS rows
+# (the tile path through L1, L x F = 2 stored float by float); 2^20 + 3
+# ray-ordered points of the static hash, a folded dynamic plane and the
+# hashed static plane.
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [3 * 256 + 17, 30_001])
+@pytest.mark.parametrize("variant", [{}, {"HASH_FWD_STAGE": False}, {"HASH_FWD_TILE": False},
+                                     {"HASH_FWD_THREADS": 512}], ids=str)
+def test_hash_grid_fwd_shapes(dev, d, f, n, variant, monkeypatch):
+    for name, value in variant.items():
+        monkeypatch.setattr(ho, name, value)
+    spec = HashEncoderSpec(d, 4, f, 11, 4, 256)
+    tables = _rand(dev, 3, spec.n_rows, f, lo=-1, hi=1, seed=60)
+    xs = _rand(dev, 3, n, d, seed=61)
+    xs[:, :3] = torch.tensor([0.0, 1.0, 0.5], device=dev)[:, None]
+    before = _cuda.LAUNCHES["hash_grid_fwd"]
+    got = ho.hash_grid_fwd(spec, tables, xs)
+    assert _cuda.LAUNCHES["hash_grid_fwd"] == before + 1
+    assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL
+
+
+@pytest.mark.parametrize("spec,n", [
+    (HashEncoderSpec(3, 6, 8, 11, 64, 2048), 1),
+    (HashEncoderSpec(3, 6, 8, 11, 64, 2048), (1 << 20) + 3),
+    (HashEncoderSpec(2, 6, 2, 11, 64, 2048), (1 << 20) + 3),
+    (HashEncoderSpec(2, 1, 8, 11, 255, 255), (1 << 20) + 3),
+    (HashEncoderSpec(2, 2, 1, 24, 16, 8192), 100_000),               # 2^24 rows through L1
+    (HashEncoderSpec(3, 2, 2, 24, 16, 8192), 5000),
+], ids=str)
+def test_hash_grid_fwd_edges(dev, spec, n):
+    tables = _rand(dev, 1, spec.n_rows, spec.n_features, lo=-1, hi=1, seed=62)
+    if n > 5000:
+        xs = _ray_points(dev, -(-n // 256), 256, seed=63)[:n, :spec.n_dims][None].contiguous()
+    else:
+        xs = _rand(dev, 1, n, spec.n_dims, seed=64)
+    got = ho.hash_grid_fwd(spec, tables, xs)
+    assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL

@@ -1,7 +1,8 @@
-"""Host-side launch decisions of the persistent backward kernels, on the CPU.
+"""Host-side launch decisions of the persistent kernels, on the CPU.
 
-`hash_grid_bwd` and `plane_linear_bwd` size their grids to the card and
-choose their shared-memory layout in Python (`ops/hash_onehot.py`,
+`hash_grid_fwd`, `hash_grid_bwd`, `plane_bilinear_bwd` and
+`plane_linear_bwd` size their grids to the card and choose their
+shared-memory layout in Python (`ops/hash_onehot.py`,
 `ops/plane_onehot.py`); the kernels take the result as it is. These tests
 hold those decisions to what the kernels assume, at the flagship shapes and
 at the edges, and hold the Python twins of the kernels' layout constants to
@@ -35,6 +36,14 @@ def test_layout_constants_match_the_cuda_sources():
     assert _constant("hash_grid_bwd.cu", "kSmemFloats") == ho.HASH_BWD_SMEM_FLOATS
     assert _constant("plane_linear_bwd.cu", "kThreads") == po.LIN_BWD_THREADS
     assert _constant("plane_linear_bwd.cu", "kSmemLimit") == po.LIN_BWD_SMEM_LIMIT
+    assert _constant("hash_grid_fwd.cu", "kMaxThreads") == ho.HASH_FWD_MAX_THREADS
+    assert _constant("hash_grid_fwd.cu", "kGatherThreads") == ho.HASH_FWD_GATHER_THREADS
+    assert ho.HASH_FWD_THREADS <= ho.HASH_FWD_MAX_THREADS and ho.HASH_FWD_THREADS % 32 == 0
+    assert _constant("hash_grid_fwd.cu", "kSmemLimit") == ho.HASH_FWD_SMEM_LIMIT
+    assert _constant("hash_grid_fwd.cu", "kMaxLevels") == ho._MAX_LEVELS
+    assert _constant("plane_bilinear_bwd.cu", "kThreads") == po.PLANE_BWD_THREADS
+    assert _constant("plane_bilinear_bwd.cu", "kChunk") == po.PLANE_BWD_CHUNK
+    assert _constant("plane_bilinear_bwd.cu", "kSmemLimit") == po.PLANE_BWD_SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n,groups,grids,bps,waves,want", [
@@ -105,3 +114,137 @@ def test_plane_linear_bwd_run_fills_one_wave_and_covers_every_point(n, c, bps):
     assert blocks * 9 <= max(H100_SMS * bps, 9)
     if run > po.LIN_BWD_MIN_RUN:                 # the shortest run that keeps to one wave
         assert -(-n // (groups * (run - 1))) > H100_SMS * bps // 9
+
+
+# plane_bilinear_bwd: the channel slice a block accumulates in shared memory.
+@pytest.mark.parametrize("c", [4, 8, 16])
+@pytest.mark.parametrize("hw", [(32, 32), (64, 64), (128, 128), (5, 17), (8, 256)])
+def test_plane_bilinear_bwd_slice_fits_shared_memory(c, hw):
+    """Every flagship plane (and every plane up to 128^2) takes the shared
+    path, with a power-of-two slice of its channels that fits 227 KB, at
+    every C the kernel takes; the flagship C = 8 planes keep at least three
+    blocks an SM."""
+    cb = po.plane_bilinear_bwd_slice(c, *hw)
+    stride = po.plane_bilinear_bwd_stride(*hw)
+    assert cb in (1, 2, 4, 8, 16) and c % cb == 0
+    assert cb * stride * 4 <= po.PLANE_BWD_SMEM_LIMIT
+    assert stride >= hw[0] * hw[1] + 4 and stride % 4 == 0
+    assert stride % 32 != 0                       # channels start on different banks
+    if c == 8:
+        assert cb * stride * 4 <= po.PLANE_BWD_SMEM_LIMIT // 3
+
+
+@pytest.mark.parametrize("c", [4, 8, 16])
+@pytest.mark.parametrize("hw", [(256, 256), (512, 512), (200, 300)])
+def test_plane_bilinear_bwd_slice_global_above_the_limit(c, hw):
+    """A plane whose one channel exceeds 227 KB takes the global path."""
+    assert po.plane_bilinear_bwd_stride(*hw) * 4 > po.PLANE_BWD_SMEM_LIMIT
+    assert po.plane_bilinear_bwd_slice(c, *hw) == 0
+
+
+def test_plane_bilinear_bwd_slice_flagship():
+    """C = 8: 32^2 with all 8 channels, 64^2 with 4, 128^2 with 1 (about
+    65 KB each); with the whole 227 KB for one block, 64^2 x 8 and 128^2 x 2."""
+    assert [po.plane_bilinear_bwd_slice(8, r, r) for r in (32, 64, 128)] == [8, 4, 1]
+    full = po.PLANE_BWD_SMEM_LIMIT
+    assert [po.plane_bilinear_bwd_slice(8, r, r, full) for r in (32, 64, 128)] == [8, 8, 2]
+
+
+@pytest.mark.parametrize("n", [1, 255, 131_072, 262_144, (1 << 20) + 3])
+@pytest.mark.parametrize("c,hw", [(8, (32, 32)), (8, (64, 64)), (8, (128, 128)),
+                                  (4, (128, 128)), (16, (32, 32)), (8, (256, 256))])
+@pytest.mark.parametrize("bps", [1, 3])
+def test_plane_bilinear_bwd_run_covers_every_point(n, c, hw, bps):
+    cb = po.plane_bilinear_bwd_slice(c, *hw)
+    lanes = cb or min(c, 8)
+    groups = po.PLANE_BWD_THREADS // lanes
+    grids = 3 * (c // lanes)
+    run = po.plane_bilinear_bwd_run(n, c, cb, 3, H100_SMS, bps)
+    blocks = -(-n // (groups * run))             # the kernel's grid.x
+    assert run >= po.PLANE_BWD_MIN_RUN and run % po.PLANE_BWD_CHUNK == 0
+    assert blocks * groups * run >= n            # every point has a group
+    assert (blocks - 1) * groups * run < n       # and every block has points
+    assert blocks * grids <= max(po.PLANE_BWD_WAVES * H100_SMS * bps, grids)
+
+
+# hash_grid_fwd: which tables go to shared memory, tile or direct stores,
+# points a tile.
+_FWD_SPECS = [
+    HashEncoderSpec(3, 6, 8, 11, 64, 2048),      # flagship static hash
+    HashEncoderSpec(3, 4, 2, 11, 16, 256),       # flagship flow grid, folded
+    HashEncoderSpec(2, 6, 2, 11, 64, 2048),      # flagship dynamic plane 0, folded
+    HashEncoderSpec(2, 6, 2, 10, 64, 2048),      # flagship dynamic planes 1-2, folded
+    HashEncoderSpec(2, 6, 8, 11, 64, 2048),      # classic dynamic plane 0
+    HashEncoderSpec(3, 4, 8, 11, 16, 256),       # classic flow grid
+    HashEncoderSpec(2, 1, 8, 11, 255, 255),      # hashed static plane
+    HashEncoderSpec(3, 3, 4, 12, 4, 32),         # dense and hashed levels
+    HashEncoderSpec(3, 2, 8, 14, 4, 64),         # a level too large for shared memory
+    HashEncoderSpec(2, 2, 1, 8, 4, 8),           # F = 1
+    HashEncoderSpec(3, 16, 2, 24, 16, 4096),     # 16 levels of KERNEL_MAX_ROWS rows
+]
+
+
+@pytest.mark.parametrize("spec", _FWD_SPECS, ids=str)
+@pytest.mark.parametrize("n_points", [1, 7_168, 16_384, 131_072, 786_432, 4_194_304])
+def test_hash_fwd_launch_fits_shared_memory(spec, n_points):
+    plan = ho.hash_fwd_launch(spec, n_points)
+    f, lf = spec.n_features, spec.n_output_dims
+    one_sector = f % 4 == 0 and lf <= 8
+    if n_points < ho.HASH_FWD_MIN_POINTS or one_sector:
+        assert plan == (0, ho.HASH_FWD_GATHER_THREADS, False, -1, None)   # the gather path
+        return
+    assert plan.tile and plan.threads == ho.HASH_FWD_THREADS <= ho.HASH_FWD_MAX_THREADS
+    tile_floats = plan.threads * ho.hash_fwd_tile_pitch(spec.n_levels, f)
+    table = ho.hash_fwd_table_floats(spec)
+    assert (plan.table_floats + tile_floats) * 4 <= ho.HASH_FWD_SMEM_LIMIT
+    if (table + tile_floats) * 4 <= ho.HASH_FWD_SMEM_LIMIT:
+        assert plan == (table, plan.threads, True, 100, ho.HASH_FWD_MIN_RUN)
+        return
+    # gathering through L1: the shared-memory share holds the resident
+    # blocks that leave HASH_FWD_L1_KEEP bytes of L1, at least one
+    assert plan.table_floats == 0 and plan.min_run == 1
+    block = tile_floats * 4 + ho.HASH_FWD_BLOCK_RESERVE
+    smem = plan.carveout * ho.HASH_FWD_SM_SMEM / 100
+    step = ho.HASH_FWD_SM_SMEM / 100
+    assert block <= smem < max(block, ho.HASH_FWD_SM_SMEM - ho.HASH_FWD_L1_KEEP) + step
+    blocks = int(smem // block)
+    assert blocks == 1 or ho.HASH_FWD_SM_SMEM - blocks * block >= ho.HASH_FWD_L1_KEEP - step
+
+
+def test_hash_fwd_launch_flagship():
+    """At the train step's and the render's point counts: the folded flow
+    grid and dynamic planes stage their tables (16-96 KB); the static hash
+    (384 KB) and the classic route's F = 8 dynamic planes and flow grid
+    gather through L1, all of them through the output tile; the hashed
+    static plane (one 32-byte sector a point) and the flow loss's 7,168
+    cloud points take the gather path."""
+    for n in (131_072, 262_144, 4_194_304):
+        plans = [ho.hash_fwd_launch(spec, n) for spec in _FWD_SPECS[:7]]
+        assert [bool(p.table_floats) for p in plans] == [False, True, True, True, False, False,
+                                                         False]
+        assert [p.tile for p in plans] == [True] * 6 + [False]
+    assert ho.hash_fwd_launch(_FWD_SPECS[1], 7_168) == (0, 128, False, -1, None)
+    assert ho.hash_fwd_launch(_FWD_SPECS[0], 262_144).carveout < 100
+
+
+@pytest.mark.parametrize("levels,features,pitch", [
+    (3, 8, 28), (6, 8, 52), (1, 8, 12), (6, 2, 12), (4, 2, 12), (2, 1, 4), (3, 4, 12),
+    (1, 1, 4), (16, 8, 132)])
+def test_hash_fwd_tile_pitch(levels, features, pitch):
+    """The pitch of the kernel's tile_pitch(): eight neighbouring points'
+    16-byte stores land on distinct banks (pitch = 4 mod 8)."""
+    assert ho.hash_fwd_tile_pitch(levels, features) == pitch
+    assert pitch % 8 == 4
+
+
+@pytest.mark.parametrize("n", [1, 255, 131_072, 262_144, 4_194_304, (1 << 20) + 3])
+@pytest.mark.parametrize("variants", [1, 3])
+@pytest.mark.parametrize("bps,min_run", [(1, 2), (2, 2), (4, 1), (8, 1)])
+def test_hash_fwd_run_covers_every_point(n, variants, bps, min_run):
+    threads = ho.HASH_FWD_THREADS
+    run = _cuda.persistent_run(n, threads, variants, min_run, H100_SMS, bps)
+    blocks = -(-n // (threads * run))                # the kernel's grid.x
+    assert run >= min_run
+    assert blocks * threads * run >= n
+    assert (blocks - 1) * threads * run < n
+    assert blocks * variants <= max(H100_SMS * bps, variants)      # one resident wave
