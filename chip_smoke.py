@@ -26,10 +26,8 @@ Phases (each prints a start line):
   train-kernels  hold every forward and backward kernel against its plain
            version at the train step's per-call sizes (131,072 and 262,144
            points along the step's 1,024 training rays, the flow loss's
-           cloud and ground points), and plane_bilinear_vjp at the sizes of
-           Planes4D.__call__ on the fine call's 262,144 points (the four
-           scales' time planes [3, 8, 8, S], a per-ray time); time kernel,
-           plain version and the PyTorch call with the same function;
+           cloud and ground points); time kernel, plain version and the
+           PyTorch call with the same function;
   train    one flagship train step on the card against the same step on the
            CPU (O(0.1-1) tables, float32 MLPs, fewer rays): loss, every
            gradient leaf, post-step parameters, once with hierarchical
@@ -43,7 +41,10 @@ Phases (each prints a start line):
            by the flagship flow net, at a per-ray time that includes the
            frame times 0 and 1: forward, then backward into every plane and
            every flow-net parameter, on the kernels and again on the plain
-           versions on the card, compared;
+           versions on the card, compared; then plane_bilinear_vjp's four
+           calls of one backward on those points (the four scales' time
+           planes [3, 8, 8, S]) held against the plain version, each timed
+           beside its bound and the PyTorch call with the same function;
   classic  under hash_onehot.ONEHOT_VARIANT = "classic" (the reference's
            A/B switch): the classic route's hash_grid cases at the train
            step's per-call sizes, one classic step against one fact step on
@@ -378,8 +379,10 @@ def finish(summary):
 def check_case(case, summary, main, iters, plain_iters):
     """Hold one kernel case against its plain version (each output within
     KERNEL_RTOL, GRAD_RTOL for a backward kernel, of the plain output's
-    largest magnitude), time kernel, plain version and library call, and add
-    the case to `summary` (times and bound only when `main`)."""
+    largest magnitude; plane_bilinear_vjp's point gradient zero exactly where
+    the plain version's is, the tent's subgradient), time kernel, plain
+    version and library call, and add the case to `summary` (times and bound
+    only when `main`)."""
     name, label, run, plain, library, nb, flops = case
     rtol = GRAD_RTOL if name.endswith(("_bwd", "_vjp")) else KERNEL_RTOL
     got, want = run(), plain()
@@ -388,6 +391,7 @@ def check_case(case, summary, main, iters, plain_iters):
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     rel = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
               for g, w in zip(got, want))
+    zeros = name != "plane_bilinear_vjp" or torch.equal(got[-1] == 0, want[-1] == 0)
     del got, want
     ms = cuda_ms(run, iters)
     plain_ms = cuda_ms(plain, plain_iters)
@@ -399,6 +403,9 @@ def check_case(case, summary, main, iters, plain_iters):
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     if not rel <= rtol:
         raise AssertionError(f"{name} {label}: max_rel {rel} > {rtol}")
+    if not zeros:
+        raise AssertionError(f"{name} {label}: the point gradient's zeros differ from the "
+                             "plain version's")
     s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                       bytes=0, flops=0, library_ms=None))
     s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -513,9 +520,9 @@ def per_ray_times(n_rays, samples, num_frames, gen, dev):
 
 def vjp_cases(params, gen, pts, t):
     """plane_bilinear_vjp cases of one Planes4D.__call__ backward on pts
-    [N, 3] in [0, 1] at per-sample times t [N, 1]: per scale one launch over
-    the three time planes [3, C, T, S] (drawn from U(0.5, 1.5): the init's
-    ones would give a zero coordinate gradient)."""
+    [N, 3] at per-sample times t [N, 1]: per scale one launch over the three
+    time planes [3, C, T, S] (drawn from U(0.5, 1.5): the init's ones would
+    give a zero coordinate gradient), with random cotangents."""
     from lidar4d_tpu_torch.ops import plane_onehot as po
 
     dev = pts.device
@@ -717,11 +724,9 @@ def check_train_kernels(field, params, ds, cache, opt, dev, classic=False):
     """Every forward and backward kernel against its plain version at the
     train step's per-call sizes: the coarse and fine density calls
     (TRAIN_RAYS rays of a train frame x num_coarse / num_fine samples) and
-    the flow loss's two flow-net calls; and plane_bilinear_vjp at the fine
-    call's points with a per-ray time. Returns the per-kernel summary, sums
-    over the calls of one train step (of Planes4D.__call__'s backward for
-    plane_bilinear_vjp). classic=True: the classic route's hash encodes
-    alone."""
+    the flow loss's two flow-net calls. Returns the per-kernel summary, sums
+    over the calls of one train step. classic=True: the classic route's
+    hash encodes alone."""
     from lidar4d_tpu_torch.ops.rays import get_lidar_rays
 
     gen = torch.Generator(device=dev)
@@ -742,9 +747,6 @@ def check_train_kernels(field, params, ds, cache, opt, dev, classic=False):
                   flush=True)
             cases = kernel_cases(field, params, gen, pts, classic) + backward_cases(
                 field, params, gen, pts, classic)
-            if samples == opt.num_fine and not classic:
-                t = per_ray_times(TRAIN_RAYS, samples, cfg.num_frames, gen, dev)
-                cases += vjp_cases(params, gen, pts, t)
             for case in cases:
                 check_case(case, summary, True, 10, 2)
             torch.cuda.empty_cache()
@@ -1023,6 +1025,25 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+def encoder_samples(field, ds, opt, dev, gen):
+    """The encoders phase's unwarped points: TRAIN_RAYS rays of train frame
+    0 x num_fine samples, x01 [N, 3] in [0, 1], and their per-ray times
+    t [N, 1] (`per_ray_times`)."""
+    from lidar4d_tpu_torch.ops.rays import get_lidar_rays
+
+    cfg = field.cfg
+    rays = get_lidar_rays(torch.as_tensor(ds.frame(0)["pose"], device=dev), FOV, ds.H_lidar,
+                          ds.W_lidar, N=TRAIN_RAYS, generator=gen)
+    x01 = chunk_points(rays["rays_o"], rays["rays_d"], cfg.near_lidar, cfg.far_lidar,
+                       cfg.bound, opt.num_fine)
+    return x01, per_ray_times(TRAIN_RAYS, opt.num_fine, cfg.num_frames, gen, dev)
+
+
+def warp(field, flow_params, x01):
+    """x01 moved by the flow net's forward flow at ENCODER_FLOW_T."""
+    return x01 + field.flow_net(flow_params, x01, ENCODER_FLOW_T)[:, :3]
+
+
 def check_encoders(field, params, ds, opt, dev):
     """Planes4D.__call__ of the flagship field on one train frame's
     TRAIN_RAYS x num_fine points, warped by the flagship flow net (xyz =
@@ -1037,21 +1058,17 @@ def check_encoders(field, params, ds, opt, dev):
     card, from one flow-net forward (so that both look the planes up at the
     same points: trained planes turn an ulp of a warped coordinate into
     1e-5 of a value); the flow net's backward runs on each side's own.
-    Values within KERNEL_RTOL, gradients within GRAD_RTOL. Returns the
-    kernel run's launches."""
+    Values within KERNEL_RTOL, gradients within GRAD_RTOL. Then
+    plane_bilinear_vjp's cases (`vjp_cases`) on the warped points, each held
+    against the plain version and timed. Returns the kernel run's launches
+    and the cases' summary (sums over the four calls)."""
     from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
     from lidar4d_tpu_torch.ops import _cuda
-    from lidar4d_tpu_torch.ops.rays import get_lidar_rays
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    cfg = field.cfg
-    rays = get_lidar_rays(torch.as_tensor(ds.frame(0)["pose"], device=dev), FOV, ds.H_lidar,
-                          ds.W_lidar, N=TRAIN_RAYS, generator=gen)
-    x01 = chunk_points(rays["rays_o"], rays["rays_d"], cfg.near_lidar, cfg.far_lidar,
-                       cfg.bound, opt.num_fine)
-    t = per_ray_times(TRAIN_RAYS, opt.num_fine, cfg.num_frames, gen, dev)
-    planes, flow = field.planes_encoder, field.flow_net
+    x01, t = encoder_samples(field, ds, opt, dev, gen)
+    planes = field.planes_encoder
     signal = signal_params(params)
     n, n_out = x01.shape[0], planes.n_output_dims // 2
     cs = torch.randn(n, n_out, generator=gen, device=dev)
@@ -1065,7 +1082,7 @@ def check_encoders(field, params, ds, opt, dev):
         leaf.requires_grad_(True)
     _cuda.reset_launch_counts()
     with mlp_dtype(torch.float32):
-        pts = torch.cat([x01 + flow(flow_params, x01, ENCODER_FLOW_T)[:, :3], t], -1)
+        pts = torch.cat([warp(field, flow_params, x01), t], -1)
         for label in ("kernels", "plain"):
             p = tree_to_torch(signal["planes"], dev)
             plane_leaves = tree_leaves(p)
@@ -1106,7 +1123,11 @@ def check_encoders(field, params, ds, opt, dev):
     if launches["plane_bilinear_vjp"] != want or any(p_launches.values()):
         raise AssertionError(f"encoders: {launches['plane_bilinear_vjp']} plane_bilinear_vjp "
                              f"launches (expected {want}); plain run launched {p_launches}")
-    return launches
+    summary = {}
+    with torch.no_grad():
+        for case in vjp_cases(params, gen, pts[:, :3].detach(), t):
+            check_case(case, summary, True, 20, 2)
+    return launches, finish(summary)
 
 
 def check_classic(field, params, ds, cache, opt, dev):
@@ -1304,7 +1325,7 @@ def main():
 
     phase("encoders")
     t0 = time.perf_counter()
-    encoder_launches = check_encoders(tfield, params, ds, opt, dev)
+    encoder_launches, encoder_summary = check_encoders(tfield, params, ds, opt, dev)
     seconds["encoders"] = time.perf_counter() - t0
 
     phase("classic")
@@ -1338,7 +1359,7 @@ def main():
     }
     kernels = []
     for name, (src, replaces, launches) in sources.items():
-        s = train_summary[name]
+        s = {**train_summary, **encoder_summary}[name]
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -54,16 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_async.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 16;
 constexpr int kMaxThreads = 512;       // HASH_FWD_MAX_THREADS in ops/hash_onehot.py
 constexpr int kGatherThreads = 128;    // HASH_FWD_GATHER_THREADS
 constexpr int kSmemLimit = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Floats a point takes in the output tile for k levels of F features: k * F
 // rounded up to 4, plus 4 where that is a multiple of 8, so that the
@@ -72,38 +70,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __host__ __device__ inline int tile_pitch(int levels, int features) {
   const int w = (levels * features + 3) & ~3;
   return w % 8 == 0 ? w + 4 : w;
-}
-
-// The table staging: one bulk copy (the non-tensor TMA path) per level,
-// counted on an mbarrier in shared memory.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// dst (shared) = src (global), `bytes` a multiple of 16, both 16-byte aligned.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 template <int F, bool kShared>

@@ -54,41 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;          // PLANE_BWD_THREADS in ops/plane_onehot.py
 constexpr int kChunk = 8;              // PLANE_BWD_CHUNK: points loaded at once
 constexpr int kSmemLimit = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Orders this thread's generic-proxy writes to shared memory before later
-// bulk operations (async proxy) that read it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// dst[0:n] += src[0:n] (float32) for a global `dst` and a shared `src` whose
-// addresses agree modulo 16 bytes, by the 32 lanes of one warp: the aligned
-// middle as one bulk reduction issued by lane 0, the ragged head and tail
-// (< 4 floats each) by atomics. Lane 0 waits until the bulk operation has
-// read its source.
-__device__ __forceinline__ void reduce_row(float* dst, const float* src, int n, int lane) {
-  const int head = min((int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4, n);
-  const int mid = (n - head) & ~3;
-  if (lane < head) atomicAdd(dst + lane, src[lane]);
-  const int t = head + mid + lane - 4;
-  if (lane >= 4 && lane < 8 && t < n) atomicAdd(dst + t, src[t]);
-  if (lane == 0 && mid > 0) {
-    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-                 ::"l"(dst + head), "r"(smem_addr(src + head)), "r"((uint32_t)mid * 4u)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  }
-}
 
 // grid: (point chunks, C / CB channel slices, planes). Block b's group g
 // (CB lanes) takes points [(b * groups + g) * run, ... + run); run is a

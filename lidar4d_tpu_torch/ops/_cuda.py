@@ -2,8 +2,9 @@
 
 The kernels have a plain C interface and include no PyTorch headers, so one
 `nvcc` call compiles every `csrc/*.cu` for Hopper (`sm_90a`) into one shared
-library in seconds. The library's file name carries a hash of the sources and
-flags, so an edited source is never served by a stale build. It is built at
+library in seconds. The library's file name carries a hash of the sources,
+the headers they share (`csrc/*.cuh`) and the flags, so an edited source is
+never served by a stale build. It is built at
 first use into `lidar4d_tpu_torch/_build/` and loaded with `ctypes`: every
 pointer and the stream are passed as `c_void_p`, the stream being PyTorch's
 current one, and each C entry returns `cudaGetLastError()` after its launch.
@@ -24,6 +25,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,20 +52,23 @@ _SIGNATURES = {
     # grid, x, cot, dgrid, dx, n_planes, n, channels, width, lead, run, copy,
     # stream
     "plane_linear_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # grid, pts, cot, dgrid, dpts, n_planes, n, channels, height, width, stream
-    "plane_bilinear_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # grid, pts, cot, dgrid, dpts, n_planes, n, channels, height, width, mode,
+    # threads, run, stride, carveout, stream
+    "plane_bilinear_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # Occupancy queries of the persistent kernels (resident blocks per SM; no
 # launch): hash_grid_fwd (n_dims, n_levels, n_features, table_floats,
 # threads, tile, carveout), hash_grid_bwd (n_dims, n_features, smem_floats),
-# plane_bilinear_bwd (channels, slice, height, width, stride) and
-# plane_linear_bwd (channels, width, copy).
+# plane_bilinear_bwd (channels, slice, height, width, stride),
+# plane_linear_bwd (channels, width, copy) and plane_bilinear_vjp (channels,
+# mode, height, width, threads, stride, carveout).
 _QUERIES = {
     "hash_grid_fwd_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),
     "hash_grid_bwd_blocks_per_sm": (_I, _I, _I),
     "plane_bilinear_bwd_blocks_per_sm": (_I, _I, _I, _I, _I),
     "plane_linear_bwd_blocks_per_sm": (_I, _I, _I),
+    "plane_bilinear_vjp_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -79,7 +84,7 @@ def reset_launch_counts():
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblidar4d_kernels_{h.hexdigest()[:16]}.so"

@@ -36,6 +36,8 @@ takes a one-sided difference at integers instead; per-sample times at frame
 nodes (t = k / (T - 1)) put v on integers often.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from lidar4d_tpu_torch.ops import _cuda
@@ -187,6 +189,90 @@ def plane_bilinear_vjp_plain(grid, pts, cot):
     return dgrid, dpts
 
 
+# The launch of `plane_bilinear_vjp` (csrc/plane_bilinear_vjp.cu): the most
+# threads a block (the kernel's kMaxThreads) and the threads a block takes,
+# points a lane group loads at once (its kChunk; runs are multiples of it),
+# the fewest consecutive points a group takes, the shared memory a block may
+# take (its kSmemLimit, the H100's 227 KB), the SM's unified L1 / shared
+# memory and the threads resident on an SM, the shared memory CUDA
+# reserves a block, the L1 a launch that reads the plane through L1 keeps,
+# whether the plane may be staged in shared memory and the blocks an SM
+# must still hold with it staged (two: the kernel's occupancy by its 64
+# registers a thread), and the resident waves the grid fills (staging,
+# waves and threads are the variants PERF.md times). The kernel's modes: dG
+# added to global memory directly, accumulated in shared memory, and
+# accumulated there beside a staged copy of the plane.
+PLANE_VJP_MAX_THREADS = 512
+PLANE_VJP_THREADS = 512
+PLANE_VJP_CHUNK = 8
+PLANE_VJP_MIN_RUN = 16
+PLANE_VJP_SMEM_LIMIT = 227 * 1024
+PLANE_VJP_SM_SMEM = 228 * 1024
+PLANE_VJP_SM_THREADS = 2048
+PLANE_VJP_BLOCK_RESERVE = 1024
+PLANE_VJP_L1_KEEP = 64 * 1024
+PLANE_VJP_STAGE = True
+PLANE_VJP_STAGE_BLOCKS = 2
+PLANE_VJP_WAVES = 1
+PLANE_VJP_GLOBAL, PLANE_VJP_SHARED, PLANE_VJP_STAGED = 0, 1, 2
+
+
+class VjpLaunch(NamedTuple):
+    """One launch of `plane_bilinear_vjp`: the kernel's mode, the floats a
+    channel takes in shared memory (`plane_bilinear_bwd_stride`), and the
+    SM's shared-memory share in percent (-1: the default)."""
+    mode: int
+    stride: int
+    carveout: int
+
+
+def plane_bilinear_vjp_smem(c, mode, stride):
+    """Dynamic shared memory of a `plane_bilinear_vjp` block in bytes: none
+    on the global path, the [C][stride] accumulator, and with the staged
+    plane a second [C][stride] and the 16-byte mbarrier."""
+    if mode == PLANE_VJP_GLOBAL:
+        return 0
+    acc = c * stride * 4
+    return 2 * acc + 16 if mode == PLANE_VJP_STAGED else acc
+
+
+def plane_bilinear_vjp_plan(c, h, w):
+    """The `VjpLaunch` of `plane_bilinear_vjp` for C channels of H x W.
+
+    A plane whose [C, H, W] gradient does not fit the 227 KB takes the
+    global path (the default shared-memory share). Else the block
+    accumulates it in shared memory, and stages the plane beside it (bulk
+    copies of H x W floats, a multiple of 4; all of the SM's fast memory
+    shared) where PLANE_VJP_STAGE and PLANE_VJP_STAGE_BLOCKS such blocks fit
+    an SM (the flagship time planes at S <= 128); otherwise it reads the
+    plane through L1 (S = 256), with a shared-memory share that holds the
+    resident blocks (as many as the SM's threads allow) and leaves
+    PLANE_VJP_L1_KEEP bytes of L1, at least one block's."""
+    stride = plane_bilinear_bwd_stride(h, w)
+    acc = plane_bilinear_vjp_smem(c, PLANE_VJP_SHARED, stride)
+    if acc > PLANE_VJP_SMEM_LIMIT:
+        return VjpLaunch(PLANE_VJP_GLOBAL, stride, -1)
+    staged = plane_bilinear_vjp_smem(c, PLANE_VJP_STAGED, stride)
+    if (PLANE_VJP_STAGE and h * w % 4 == 0 and staged <= PLANE_VJP_SMEM_LIMIT
+            and PLANE_VJP_STAGE_BLOCKS * (staged + PLANE_VJP_BLOCK_RESERVE)
+            <= PLANE_VJP_SM_SMEM):
+        return VjpLaunch(PLANE_VJP_STAGED, stride, 100)
+    block = acc + PLANE_VJP_BLOCK_RESERVE
+    blocks = max(1, min(PLANE_VJP_SM_THREADS // PLANE_VJP_THREADS,
+                        (PLANE_VJP_SM_SMEM - PLANE_VJP_L1_KEEP) // block))
+    return VjpLaunch(PLANE_VJP_SHARED, stride,
+                     min(100, -(-100 * blocks * block // PLANE_VJP_SM_SMEM)))
+
+
+def plane_bilinear_vjp_run(n, c, n_planes, sms, blocks_per_sm):
+    """Consecutive points a lane group (C lanes) of `plane_bilinear_vjp`
+    takes: the persistent run for P planes of blocks of PLANE_VJP_THREADS
+    threads, rounded up to a multiple of PLANE_VJP_CHUNK."""
+    run = _cuda.persistent_run(n, PLANE_VJP_THREADS // c, n_planes, PLANE_VJP_MIN_RUN, sms,
+                               blocks_per_sm, PLANE_VJP_WAVES)
+    return -(-run // PLANE_VJP_CHUNK) * PLANE_VJP_CHUNK
+
+
 def plane_bilinear_vjp(grid, pts, cot):
     """Both gradients of `plane_bilinear_fwd`: grid [P, C, H, W], pts
     [P, N, 2], cot [P, C, N] -> (dG [P, C, H, W], dpts [P, N, 2]) float32,
@@ -202,13 +288,19 @@ def plane_bilinear_vjp(grid, pts, cot):
         raise ValueError(f"plane_bilinear_vjp kernel takes C in {_KERNEL_CHANNELS}, got {c}")
     for name, t in (("grid", grid), ("pts", pts), ("cot", cot)):
         _cuda.check_cuda_tensor(name, t)
+    grid = _cuda.aligned(grid)
     pts = _cuda.aligned(pts, 8)
     dgrid = torch.zeros((p, c, h, w), dtype=torch.float32, device=pts.device)
     dpts = torch.empty((p, n, 2), dtype=torch.float32, device=pts.device)
     if n == 0:
         return dgrid, dpts
+    plan = plane_bilinear_vjp_plan(c, h, w)
+    bps = _cuda.blocks_per_sm("plane_bilinear_vjp_blocks_per_sm", c, plan.mode, h, w,
+                              PLANE_VJP_THREADS, plan.stride, plan.carveout)
+    run = plane_bilinear_vjp_run(n, c, p, _cuda.sm_count(pts.device), bps)
     _cuda.launch("plane_bilinear_vjp", pts.device, grid.data_ptr(), pts.data_ptr(),
-                 cot.data_ptr(), dgrid.data_ptr(), dpts.data_ptr(), p, n, c, h, w)
+                 cot.data_ptr(), dgrid.data_ptr(), dpts.data_ptr(), p, n, c, h, w, plan.mode,
+                 PLANE_VJP_THREADS, run, plan.stride, plan.carveout)
     return dgrid, dpts
 
 

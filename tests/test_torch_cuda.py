@@ -453,3 +453,63 @@ def test_hash_grid_fwd_edges(dev, spec, n):
         xs = _rand(dev, 1, n, spec.n_dims, seed=64)
     got = ho.hash_grid_fwd(spec, tables, xs)
     assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL
+
+
+# The redesigned plane_bilinear_vjp: the flagship time planes [3, 8, 8, S]
+# (the [C, T, S] gradient in shared memory; the plane staged beside it at
+# S <= 128, read through L1 at S = 256), ray-ordered points at a per-ray time
+# whose first rays sit on the frame times t = k / (T - 1) (v an exact
+# integer: dv = 0 there), every point on one pixel, 262,144 and 262,147
+# points (16-byte chunk loads and not) and N = 1; C = 4 and 16; every plane
+# read through L1, or S = 256 staged; 256 threads a block (C = 16: a warp
+# flushes two channel rows); two waves; a ragged 5 x 17 plane (shared
+# accumulator, no staging); the global path (128^2 x 8, 64^2 x 16). dG and
+# dpts within GRAD_RTOL of the plain version, and dpts zero exactly where
+# the plain version's is.
+def _vjp_points(dev, n, t_res, layout, seed):
+    if layout == "one pixel":
+        return torch.tensor([0.3712, 0.6123], device=dev).expand(3, n, 2).contiguous()
+    if layout == "uniform":
+        return _rand(dev, 3, n, 2, lo=-0.1, hi=1.1, seed=seed)
+    n_rays = -(-n // 256)
+    xyz = _ray_points(dev, n_rays, 256, seed=seed)[:n]
+    t = _rand(dev, n_rays, seed=seed + 1)
+    k = min(n_rays, 2 * t_res)
+    t[:k] = (torch.arange(k, device=dev) % t_res).float() / (t_res - 1)
+    t = t.repeat_interleave(256)[:n, None]
+    return torch.stack([torch.cat([xyz[:, [c]], t], -1) for c in range(3)]).contiguous()
+
+
+def _check_vjp(dev, c, hw, n, layout, seed):
+    grid = _rand(dev, 3, c, *hw, lo=0.5, hi=1.5, seed=seed)
+    pts = _vjp_points(dev, n, hw[0], layout, seed + 1)
+    cot = _rand(dev, 3, c, n, lo=-1, hi=1, seed=seed + 3)
+    before = _cuda.LAUNCHES["plane_bilinear_vjp"]
+    dg, dp = po.plane_bilinear_vjp(grid, pts, cot)
+    assert _cuda.LAUNCHES["plane_bilinear_vjp"] == before + 1
+    want_dg, want_dp = po.plane_bilinear_vjp_plain(grid, pts, cot)
+    assert _rel(dg, want_dg) <= GRAD_RTOL
+    assert _rel(dp, want_dp) <= GRAD_RTOL
+    assert torch.equal(dp == 0, want_dp == 0)          # the tent's zeros, point by point
+    if layout == "rays":
+        assert (dp[..., 1] == 0).any() and (dp[..., 1] != 0).any()
+
+
+@pytest.mark.parametrize("s", [32, 64, 128, 256])
+@pytest.mark.parametrize("n,layout", [
+    (262_144, "rays"), (262_147, "rays"), (5000, "one pixel"), (1, "uniform"),
+], ids=str)
+def test_plane_bilinear_vjp_edges(dev, s, n, layout):
+    _check_vjp(dev, 8, (8, s), n, layout, seed=70)
+
+
+@pytest.mark.parametrize("c,hw,variant", [
+    (4, (8, 32), {}), (4, (8, 256), {}), (16, (8, 32), {}), (16, (8, 256), {}),
+    (8, (8, 32), {"PLANE_VJP_STAGE": False}), (8, (8, 256), {"PLANE_VJP_STAGE_BLOCKS": 1}),
+    (16, (8, 128), {"PLANE_VJP_THREADS": 256}), (8, (8, 256), {"PLANE_VJP_WAVES": 2}),
+    (8, (5, 17), {}), (8, (128, 128), {}), (16, (64, 64), {}),
+], ids=str)
+def test_plane_bilinear_vjp_launch_plans(dev, c, hw, variant, monkeypatch):
+    for name, value in variant.items():
+        monkeypatch.setattr(po, name, value)
+    _check_vjp(dev, c, hw, 9001, "rays" if hw[0] == 8 else "uniform", seed=80)

@@ -1,7 +1,7 @@
 """Host-side launch decisions of the persistent kernels, on the CPU.
 
-`hash_grid_fwd`, `hash_grid_bwd`, `plane_bilinear_bwd` and
-`plane_linear_bwd` size their grids to the card and choose their
+`hash_grid_fwd`, `hash_grid_bwd`, `plane_bilinear_bwd`, `plane_bilinear_vjp`
+and `plane_linear_bwd` size their grids to the card and choose their
 shared-memory layout in Python (`ops/hash_onehot.py`,
 `ops/plane_onehot.py`); the kernels take the result as it is. These tests
 hold those decisions to what the kernels assume, at the flagship shapes and
@@ -44,6 +44,14 @@ def test_layout_constants_match_the_cuda_sources():
     assert _constant("plane_bilinear_bwd.cu", "kThreads") == po.PLANE_BWD_THREADS
     assert _constant("plane_bilinear_bwd.cu", "kChunk") == po.PLANE_BWD_CHUNK
     assert _constant("plane_bilinear_bwd.cu", "kSmemLimit") == po.PLANE_BWD_SMEM_LIMIT
+    assert _constant("plane_bilinear_vjp.cu", "kMaxThreads") == po.PLANE_VJP_MAX_THREADS
+    assert _constant("plane_bilinear_vjp.cu", "kChunk") == po.PLANE_VJP_CHUNK
+    assert _constant("plane_bilinear_vjp.cu", "kSmemLimit") == po.PLANE_VJP_SMEM_LIMIT
+    assert po.PLANE_VJP_THREADS <= po.PLANE_VJP_MAX_THREADS and po.PLANE_VJP_THREADS % 32 == 0
+    modes = re.search(r"enum Mode \{ kGlobal = (\d), kShared = (\d), kStaged = (\d) \};",
+                      (CSRC / "plane_bilinear_vjp.cu").read_text())
+    assert modes and tuple(map(int, modes.groups())) == (
+        po.PLANE_VJP_GLOBAL, po.PLANE_VJP_SHARED, po.PLANE_VJP_STAGED)
 
 
 @pytest.mark.parametrize("n,groups,grids,bps,waves,want", [
@@ -248,3 +256,78 @@ def test_hash_fwd_run_covers_every_point(n, variants, bps, min_run):
     assert blocks * threads * run >= n
     assert (blocks - 1) * threads * run < n
     assert blocks * variants <= max(H100_SMS * bps, variants)      # one resident wave
+
+
+# plane_bilinear_vjp: where a block accumulates dG and reads the plane, and
+# the persistent run.
+@pytest.mark.parametrize("c", [4, 8, 16])
+@pytest.mark.parametrize("hw", [(8, 32), (8, 64), (8, 128), (8, 256), (5, 17)], ids=str)
+def test_plane_bilinear_vjp_plan_fits_shared_memory(c, hw):
+    """Every time plane [C, 8, S] (S <= 256, C in 4, 8, 16) and a ragged
+    5 x 17 plane accumulate their whole gradient in shared memory; a staged
+    plane fits beside it with PLANE_VJP_STAGE_BLOCKS blocks an SM and whole
+    16-byte bulk copies; the L1 route's shared-memory share holds its
+    resident blocks."""
+    plan = po.plane_bilinear_vjp_plan(c, *hw)
+    stride = po.plane_bilinear_bwd_stride(*hw)
+    assert plan.stride == stride and stride % 32 != 0    # channels on different banks
+    assert plan.mode in (po.PLANE_VJP_SHARED, po.PLANE_VJP_STAGED)
+    smem = po.plane_bilinear_vjp_smem(c, plan.mode, stride)
+    assert smem <= po.PLANE_VJP_SMEM_LIMIT
+    assert po.plane_bilinear_vjp_smem(c, po.PLANE_VJP_SHARED, stride) == c * stride * 4
+    if plan.mode == po.PLANE_VJP_STAGED:
+        assert hw[0] * hw[1] % 4 == 0 and plan.carveout == 100
+        assert smem == 2 * c * stride * 4 + 16
+        assert po.PLANE_VJP_STAGE_BLOCKS * (smem + po.PLANE_VJP_BLOCK_RESERVE) \
+            <= po.PLANE_VJP_SM_SMEM
+    else:
+        block = smem + po.PLANE_VJP_BLOCK_RESERVE
+        share = plan.carveout * po.PLANE_VJP_SM_SMEM / 100
+        assert 0 < plan.carveout <= 100 and share >= block
+        blocks = int(share // block)
+        assert blocks >= min(po.PLANE_VJP_SM_THREADS // po.PLANE_VJP_THREADS,
+                             (po.PLANE_VJP_SM_SMEM - po.PLANE_VJP_L1_KEEP) // block)
+
+
+@pytest.mark.parametrize("c,hw", [(4, (128, 128)), (8, (128, 128)), (16, (128, 128)),
+                                  (16, (64, 64)), (8, (256, 256)), (4, (200, 300))], ids=str)
+def test_plane_bilinear_vjp_plan_global_above_the_limit(c, hw):
+    """A plane whose [C, H, W] gradient exceeds 227 KB takes the global path
+    (no shared memory, the default share), as the 8-channel 128^2 plane of
+    the card tests does."""
+    plan = po.plane_bilinear_vjp_plan(c, *hw)
+    assert c * po.plane_bilinear_bwd_stride(*hw) * 4 > po.PLANE_VJP_SMEM_LIMIT
+    assert plan.mode == po.PLANE_VJP_GLOBAL and plan.carveout == -1
+    assert po.plane_bilinear_vjp_smem(c, plan.mode, plan.stride) == 0
+
+
+def test_plane_bilinear_vjp_plan_flagship(monkeypatch):
+    """The flagship time planes [3, 8, 8, S]: the plane staged at S = 32, 64
+    and 128 (16-66 KB a block, two blocks an SM), read through L1 at S = 256
+    (a 64 KB accumulator; staged, 128 KB would leave one block an SM), with
+    a share of 132 KB for two blocks and 96 KB of L1. Without staging every
+    S reads through L1; with one block an SM allowed, S = 256 stages too."""
+    modes = [po.plane_bilinear_vjp_plan(8, 8, s).mode for s in (32, 64, 128, 256)]
+    assert modes == [po.PLANE_VJP_STAGED] * 3 + [po.PLANE_VJP_SHARED]
+    assert po.plane_bilinear_vjp_plan(8, 8, 256).carveout == 58
+    monkeypatch.setattr(po, "PLANE_VJP_STAGE", False)
+    assert {po.plane_bilinear_vjp_plan(8, 8, s).mode for s in (32, 64, 128, 256)} == {
+        po.PLANE_VJP_SHARED}
+    monkeypatch.setattr(po, "PLANE_VJP_STAGE", True)
+    monkeypatch.setattr(po, "PLANE_VJP_STAGE_BLOCKS", 1)
+    assert po.plane_bilinear_vjp_plan(8, 8, 256).mode == po.PLANE_VJP_STAGED
+
+
+@pytest.mark.parametrize("n", [1, 7, 262_144, 262_147])
+@pytest.mark.parametrize("c", [4, 8, 16])
+@pytest.mark.parametrize("bps", [1, 2, 4])
+def test_plane_bilinear_vjp_run_covers_every_point(n, c, bps):
+    """Three planes: every point has a lane group, every block has points,
+    runs are whole chunks, and the grid keeps to one resident wave."""
+    groups = po.PLANE_VJP_THREADS // c
+    run = po.plane_bilinear_vjp_run(n, c, 3, H100_SMS, bps)
+    blocks = -(-n // (groups * run))             # the kernel's grid.x
+    assert run >= po.PLANE_VJP_MIN_RUN and run % po.PLANE_VJP_CHUNK == 0
+    assert blocks * groups * run >= n
+    assert (blocks - 1) * groups * run < n
+    assert blocks * 3 <= max(po.PLANE_VJP_WAVES * H100_SMS * bps, 3)
