@@ -67,6 +67,30 @@ Phases (each prints a start line):
            rays/s by epoch, eval s/frame by part, refine ms/step and peak
            memory, test s/frame and checkpoint seconds, and a JSON line
            {"trainer": {...}}.
+  simulate the simulation CLI, `python -m lidar4d_tpu_torch.cli.main_lidar4d_sim`,
+           in a fresh process on the trainer phase's workspace (--ckpt
+           latest_model must resolve to its refine checkpoint): the scene's
+           51 frames at 66x1030 with the U-Net refine, points and panels
+           written; the same frames rendered in this process by
+           Simulator.render with the TF32 switches of a fresh process, each
+           point cloud bitwise equal to the CLI's (a fresh process's first
+           card render against a warm process's); then --kitti2nus
+           --shift_y 0.5 --align_axis (32x1024, no refine) in a fresh
+           process and by cli.main_lidar4d_sim.main in this one, bitwise
+           equal again. Checks: finite [M, 4] clouds, the forward kernels
+           launched and no backward kernel, by the CLI's printed counts and
+           this process's. Prints s/frame of both shapes and a JSON line
+           {"simulate": {...}}.
+  preprocess (host) the preprocessing CLI, cli.preprocess --dataset kitti360,
+           on a raw KITTI-360 tree written here (sequence 1538, 64 scans of
+           100,000 points), read back through the config it writes and
+           KITTI360Dataset, with seconds per step; the native extension
+           built with this machine's g++ and its pano held against numpy's
+           (1e-6); the outlier removal on the synthetic scene's first 8
+           refine frames (point_removal's input) by cKDTree on one worker,
+           by the port's default (cKDTree on every core) and by the native
+           kNN, with seconds a frame and the points whose keeping differs
+           from the one-worker cKDTree's. A JSON line {"preprocess": {...}}.
 
 The kernels line (the line before the device's name) is a JSON object with
 each kernel's numbers. For the six kernels of the train step they are taken
@@ -171,6 +195,10 @@ ENCODER_FLOW_T = 0.3           # the flow net's time in the encoders phase
 # second at patch (2, 8), evaluation at epoch 2, then refine, evaluate, test
 TRAINER_EPOCHS = 3
 METER_RTOL = 1e-6              # the meters on the card vs on the CPU, relative
+# preprocess phase: scans of a real KITTI-360 scan's size, and the outlier
+# removal's three paths on the synthetic scene's first refine frames
+RAW_SCAN_POINTS = 100_000
+OUTLIER_FRAMES = 8
 TRAIN_KERNELS = ("hash_grid_fwd", "hash_grid_bwd", "plane_bilinear_fwd", "plane_bilinear_bwd",
                  "plane_linear_fwd", "plane_linear_bwd")
 
@@ -1309,49 +1337,48 @@ def read_jsonl(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def check_trainer(scale, offset, dev):
+def check_trainer(root, scale, offset, dev):
     """The port's training entry point, `cli.main_lidar4d.main`, on the card:
-    the flagship config on the synthetic scene (written by the CLI into a
-    temporary directory), TRAINER_EPOCHS epochs, then refine, evaluate and
-    test; then a second `main` with --test_eval --ckpt latest in the same
-    workspace, which must reproduce the first run's eval meters exactly;
-    then one val frame's meters on the card against the CPU. Returns the
-    phase's summary."""
+    the flagship config on the synthetic scene (written by the CLI into
+    `root`/scene), TRAINER_EPOCHS epochs, then refine, evaluate and test in
+    the workspace `root`/workspace; then a second `main` with --test_eval
+    --ckpt latest in the same workspace, which must reproduce the first
+    run's eval meters exactly; then one val frame's meters on the card
+    against the CPU. Returns the phase's summary."""
     from lidar4d_tpu_torch.cli import main_lidar4d
     from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
 
     probe = TrainerProbe()
-    with tempfile.TemporaryDirectory() as root:
-        scene, ws = f"{root}/scene", f"{root}/workspace"
-        # the synthetic scene holds every 5th frame out for val / test
-        n_train = sum(1 for f in range(SCENE["num_frames"]) if f % 5 != 4)
-        argv = ["--config", CONFIG, "--dataloader", "synthetic", "--path", scene,
-                "--sequence_id", SCENE["sequence_id"], "--num_frames", str(SCENE["num_frames"]),
-                "--synthetic_H", str(SCENE["H"]), "--synthetic_W", str(SCENE["W"]),
-                "--synthetic_seed", str(SCENE["seed"]), "--scale", repr(scale),
-                "--offset", *map(repr, offset), "--workspace", ws,
-                "--iters", str(TRAINER_EPOCHS * n_train), "--hier_warmup_iters", str(n_train),
-                "--eval_interval", "2", "--seed", str(SEED), "--device", str(dev)]
-        t0 = time.perf_counter()
-        with probe.installed():
-            first = main_lidar4d.main(argv + ["--ckpt", "scratch"])
-            t_first = time.perf_counter() - t0
-            records = read_jsonl(first.metrics_path)
-            names = sorted(os.listdir(first.ckpt.ckpt_dir))
-            t1 = time.perf_counter()
-            second = main_lidar4d.main(argv + ["--ckpt", "latest", "--test_eval"])
-            t_second = time.perf_counter() - t1
-        opt = first.opt
-        val_ds = KITTI360Dataset(split="val", root_path=scene, sequence_id=SCENE["sequence_id"],
-                                 scale=opt.scale, offset=opt.offset, fov_lidar=opt.fov_lidar)
-        n_test = len(KITTI360Dataset(split="test", root_path=scene,
-                                     sequence_id=SCENE["sequence_id"], scale=opt.scale,
-                                     offset=opt.offset))
-        meter_rel = check_meters_card_vs_cpu(second, opt, val_ds, dev)
-        with open(first.log_path) as f:
-            bce = [(int(line.split()[2][:-1]), float(line.split()[-1])) for line in f
-                   if line.startswith("refine iter ")]
-        records2 = read_jsonl(second.metrics_path)
+    scene, ws = f"{root}/scene", f"{root}/workspace"
+    # the synthetic scene holds every 5th frame out for val / test
+    n_train = sum(1 for f in range(SCENE["num_frames"]) if f % 5 != 4)
+    argv = ["--config", CONFIG, "--dataloader", "synthetic", "--path", scene,
+            "--sequence_id", SCENE["sequence_id"], "--num_frames", str(SCENE["num_frames"]),
+            "--synthetic_H", str(SCENE["H"]), "--synthetic_W", str(SCENE["W"]),
+            "--synthetic_seed", str(SCENE["seed"]), "--scale", repr(scale),
+            "--offset", *map(repr, offset), "--workspace", ws,
+            "--iters", str(TRAINER_EPOCHS * n_train), "--hier_warmup_iters", str(n_train),
+            "--eval_interval", "2", "--seed", str(SEED), "--device", str(dev)]
+    t0 = time.perf_counter()
+    with probe.installed():
+        first = main_lidar4d.main(argv + ["--ckpt", "scratch"])
+        t_first = time.perf_counter() - t0
+        records = read_jsonl(first.metrics_path)
+        names = sorted(os.listdir(first.ckpt.ckpt_dir))
+        t1 = time.perf_counter()
+        second = main_lidar4d.main(argv + ["--ckpt", "latest", "--test_eval"])
+        t_second = time.perf_counter() - t1
+    opt = first.opt
+    val_ds = KITTI360Dataset(split="val", root_path=scene, sequence_id=SCENE["sequence_id"],
+                             scale=opt.scale, offset=opt.offset, fov_lidar=opt.fov_lidar)
+    n_test = len(KITTI360Dataset(split="test", root_path=scene,
+                                 sequence_id=SCENE["sequence_id"], scale=opt.scale,
+                                 offset=opt.offset))
+    meter_rel = check_meters_card_vs_cpu(second, opt, val_ds, dev)
+    with open(first.log_path) as f:
+        bce = [(int(line.split()[2][:-1]), float(line.split()[-1])) for line in f
+               if line.startswith("refine iter ")]
+    records2 = read_jsonl(second.metrics_path)
 
     epochs = [r for r in records if "rays_per_sec" in r]
     evals = [r for r in records if "valid_loss" in r]
@@ -1426,6 +1453,317 @@ def check_trainer(scale, offset, dev):
         "checkpoint_s": ckpt_s, "stage_s": seconds, "launches": stage_launch,
         "seconds": {"first_run": t_first, "resumed_run": t_second},
     }
+
+
+def sim_argv(root, scale, offset, dev):
+    """The simulation CLI's flags for the trainer phase's field and scene."""
+    return ["--config", CONFIG, "--path", f"{root}/scene", "--sequence_id", SCENE["sequence_id"],
+            "--num_frames", str(SCENE["num_frames"]), "--scale", repr(scale),
+            "--offset", *map(repr, offset), "--seed", str(SEED), "--device", str(dev)]
+
+
+def fresh_process_backends():
+    """torch.backends' matmul / cuDNN TF32 switches as a fresh process has
+    them (this script turns both off)."""
+    code = ("import json, torch; print(json.dumps([torch.backends.cuda.matmul.allow_tf32, "
+            "torch.backends.cudnn.allow_tf32]))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def backends(matmul_tf32, cudnn_tf32):
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul_tf32, cudnn_tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def run_sim_cli(argv):
+    """`python -m lidar4d_tpu_torch.cli.main_lidar4d_sim argv` in a fresh
+    process; returns (wall seconds, its printed render line's s/frame, its
+    printed kernel launches, the checkpoint it loaded)."""
+    import ast
+
+    cmd = [sys.executable, "-m", "lidar4d_tpu_torch.cli.main_lidar4d_sim", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"simulation CLI failed ({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    rendered = [line for line in proc.stdout.splitlines() if line.startswith("[INFO] rendered")]
+    loaded = [line.split("Loading ")[1].split()[0] for line in proc.stdout.splitlines()
+              if line.startswith("[INFO] Loading")]
+    for line in proc.stdout.splitlines() + proc.stderr.splitlines():
+        if "rendered" in line or "Loading" in line or "WARN" in line or "Warning" in line:
+            print("  cli: " + line.strip()[:240], flush=True)
+    line = rendered[-1]
+    s_frame = float(line.split("(")[1].split(" s/frame")[0])
+    launches = ast.literal_eval(line.split("kernel launches ")[1])
+    return wall, s_frame, launches, (loaded[-1] if loaded else None)
+
+
+def check_launches(what, launches):
+    for name, count in launches.items():
+        if (count <= 0) if name.endswith("_fwd") else (count != 0):
+            raise AssertionError(f"{what}: kernel {name} launched {count} times")
+
+
+def check_clouds(what, clouds, n_frames, H, W):
+    if len(clouds) != n_frames:
+        raise AssertionError(f"{what}: {len(clouds)} point clouds, not {n_frames}")
+    for i, c in enumerate(clouds):
+        if c.ndim != 2 or c.shape[1] != 4 or not 0 < len(c) <= H * W or not np.isfinite(c).all():
+            raise AssertionError(f"{what}: frame {i} is not a finite [M, 4] cloud, M <= {H * W}: "
+                                 f"{c.shape}")
+
+
+def read_clouds(ws):
+    d = os.path.join(ws, "points")
+    return [np.load(os.path.join(d, n)) for n in sorted(os.listdir(d))]
+
+
+def check_simulate(root, scale, offset, dev):
+    """The simulation CLI on the trainer phase's refined field: 66x1030 with
+    the U-Net refine in a fresh process, held bitwise against the same render
+    in this process; then --kitti2nus (32x1024, no refine) in a fresh process
+    and in this process, also bitwise. Returns the phase's summary."""
+    from lidar4d_tpu_torch.cli import main_lidar4d_sim
+    from lidar4d_tpu_torch.cli.config import build_model_config
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+    from lidar4d_tpu_torch.ops import _cuda
+    from lidar4d_tpu_torch.sim.simulator import Simulator, build_novel_rays, shift_trajectory
+    from lidar4d_tpu_torch.train.checkpoints import CheckpointManager
+
+    fresh = fresh_process_backends()
+    print(f"  a fresh process's TF32 switches (matmul, cuDNN): {fresh}; this process's are "
+          f"({torch.backends.cuda.matmul.allow_tf32}, {torch.backends.cudnn.allow_tf32})",
+          flush=True)
+    base = sim_argv(root, scale, offset, dev)
+    trained = f"{root}/workspace"
+    refine_ckpt = os.path.join(trained, "checkpoints", f"lidar4d_ep{TRAINER_EPOCHS:04d}_refine")
+    out = {"checkpoint": os.path.basename(refine_ckpt), "backends_fresh": fresh}
+
+    # 1. the config's sensor (66x1030) with the refine: a fresh process, then this one
+    wall, s_frame, launches, loaded = run_sim_cli(base + ["--workspace", trained,
+                                                          "--ckpt", "latest_model"])
+    if loaded != refine_ckpt:
+        raise AssertionError(f"latest_model resolved to {loaded}, not {refine_ckpt}")
+    check_launches("simulation CLI", launches)
+    cli_clouds = read_clouds(trained)
+    opt = main_lidar4d_sim.get_sim_arg_parser().parse_args(base)
+    n_frames, H, W = SCENE["num_frames"], opt.H_lidar, opt.W_lidar
+    check_clouds("simulation CLI", cli_clouds, n_frames, H, W)
+    opt.near_lidar *= opt.scale
+    opt.far_lidar *= opt.scale
+    field = LiDAR4DField(build_model_config(opt), device=dev)
+    params = CheckpointManager(trained).restore(refine_ckpt, dev)["params"]
+    poses, times = main_lidar4d_sim._sequence_poses_times(opt)
+    rays_o, rays_d = build_novel_rays(poses, H, W, opt.fov_lidar)
+    rays_o = shift_trajectory(rays_o, 0.0, 0.0, 0.0, opt.scale)
+    sim = Simulator("lidar4d", opt, field, params, workspace=f"{root}/sim_inproc",
+                    use_refine=True, H_lidar=H, W_lidar=W, device=dev)
+    with backends(*fresh):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.render(rays_o, rays_d, times, save_img=False, save_video=False)
+        torch.cuda.synchronize()
+        inproc_s = (time.perf_counter() - t0) / n_frames
+        inproc_launches = dict(_cuda.LAUNCHES)
+    check_launches("in-process render", inproc_launches)
+    mine = read_clouds(f"{root}/sim_inproc")
+    differ = [i for i, (a, b) in enumerate(zip(cli_clouds, mine))
+              if a.shape != b.shape or not np.array_equal(a, b)]
+    print(f"  {H}x{W}, {n_frames} frames, U-Net refine: CLI in a fresh process {wall:.1f} s "
+          f"wall, {s_frame:.4f} s/frame rendering; in this process {inproc_s:.4f} s/frame; "
+          f"points a frame {np.mean([len(c) for c in mine]):.1f}; frames not bitwise equal "
+          f"{differ}; launches CLI {launches}, here {inproc_launches}", flush=True)
+    if differ:
+        i = differ[0]
+        a, b = cli_clouds[i], mine[i]
+        gap = (np.abs(a - b).max() if a.shape == b.shape else f"{a.shape} vs {b.shape}")
+        raise AssertionError(f"the fresh process's render differs from this process's in "
+                             f"frames {differ}; frame {i}: {gap}")
+    out[f"{H}x{W}"] = {"frames": n_frames, "cli_wall_s": wall, "cli_s_per_frame": s_frame,
+                      "inproc_s_per_frame": inproc_s, "cli_launches": launches,
+                      "inproc_launches": inproc_launches, "bitwise_equal": True,
+                      "points_per_frame": float(np.mean([len(c) for c in mine]))}
+
+    # 2. --kitti2nus: 32x1024, no refine, shifted and aligned
+    k2n = base + ["--ckpt", refine_ckpt, "--kitti2nus", "--shift_y", "0.5", "--align_axis"]
+    wall, s_frame, launches, _ = run_sim_cli(k2n + ["--workspace", f"{root}/sim_k2n_cli"])
+    check_launches("simulation CLI kitti2nus", launches)
+    cli_clouds = read_clouds(f"{root}/sim_k2n_cli")
+    check_clouds("simulation CLI kitti2nus", cli_clouds, n_frames, 32, 1024)
+    with backends(*fresh):
+        t0 = time.perf_counter()
+        sim = main_lidar4d_sim.main(k2n + ["--workspace", f"{root}/sim_k2n"])
+        inproc_wall = time.perf_counter() - t0
+        inproc_launches = dict(_cuda.LAUNCHES)
+    check_launches("in-process kitti2nus", inproc_launches)
+    if sim.use_refine or (sim.H_lidar, sim.W_lidar) != (32, 1024):
+        raise AssertionError(f"kitti2nus: refine {sim.use_refine}, {sim.H_lidar}x{sim.W_lidar}")
+    mine = read_clouds(f"{root}/sim_k2n")
+    differ = [i for i, (a, b) in enumerate(zip(cli_clouds, mine))
+              if a.shape != b.shape or not np.array_equal(a, b)]
+    print(f"  kitti2nus 32x1024, {n_frames} frames, no refine: CLI in a fresh process "
+          f"{wall:.1f} s wall, {s_frame:.4f} s/frame rendering; main() in this process "
+          f"{inproc_wall:.1f} s; points a frame {np.mean([len(c) for c in mine]):.1f}; frames "
+          f"not bitwise equal {differ}; launches CLI {launches}, here {inproc_launches}",
+          flush=True)
+    if differ:
+        raise AssertionError(f"kitti2nus: the fresh process's render differs in frames {differ}")
+    out["32x1024"] = {"frames": n_frames, "cli_wall_s": wall, "cli_s_per_frame": s_frame,
+                      "inproc_wall_s": inproc_wall, "cli_launches": launches,
+                      "inproc_launches": inproc_launches, "bitwise_equal": True,
+                      "points_per_frame": float(np.mean([len(c) for c in mine]))}
+    return out
+
+
+def write_raw_kitti360(root, points, seed=SEED):
+    """A raw KITTI-360 tree for sequence 1538 (64 frames; the layout of
+    tests/test_preprocess.py: poses.txt with frames 1550-1551 missing, the two
+    calibration files, velodyne .bin scans of `points` points)."""
+    k3 = os.path.join(root, "KITTI-360")
+    seq = "2013_05_28_drive_0000_sync"
+    lidar_dir = os.path.join(k3, "data_3d_raw", seq, "velodyne_points", "data")
+    for d in (os.path.join(k3, "calibration"), os.path.join(k3, "data_poses", seq), lidar_dir):
+        os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    cam_to_pose = np.hstack([np.eye(3), [[0.8], [0.3], [-0.1]]])
+    with open(os.path.join(k3, "calibration", "calib_cam_to_pose.txt"), "w") as f:
+        for cam in ("image_00", "image_01"):
+            f.write(f"{cam}: " + " ".join(str(v) for v in cam_to_pose.reshape(-1)) + "\n")
+    with open(os.path.join(k3, "calibration", "calib_cam_to_velo.txt"), "w") as f:
+        f.write(" ".join(str(v) for v in np.hstack([np.eye(3), [[0.3], [0.0], [0.2]]]).reshape(-1))
+                + "\n")
+    lines = []
+    for fid in range(1538, 1602):
+        if fid not in (1550, 1551):
+            pose = np.hstack([np.eye(3), [[0.5 * (fid - 1538)], [0.0], [0.0]]])
+            lines.append(np.concatenate([[fid], pose.reshape(-1)]))
+    np.savetxt(os.path.join(k3, "data_poses", seq, "poses.txt"), np.stack(lines))
+    for fid in range(1538, 1602):
+        az = rng.uniform(-np.pi, np.pi, points)
+        el = rng.uniform(np.radians(-24.9), np.radians(2.0), points)
+        r = rng.uniform(3, 90, points)
+        pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                        r * np.sin(el), rng.uniform(0, 1, points)], axis=1).astype(np.float32)
+        pts.tofile(os.path.join(lidar_dir, f"{fid:010d}.bin"))
+    return lidar_dir
+
+
+def ckdtree_kept(points, k=64, ratio=3.0):
+    """The JAX package's cKDTree outlier removal (one worker), the reference
+    path the others are counted against."""
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(points).query(points, k=k + 1)
+    mean_d = d[:, 1:].mean(axis=1)
+    return points[mean_d < mean_d.mean() + ratio * mean_d.std()]
+
+
+def check_preprocess(root, scale, offset):
+    """Host work: the preprocessing CLI on a raw KITTI-360 tree of scans at a
+    real scan's size, the native extension built with this machine's g++ and
+    held against numpy, and the three outlier-removal paths on the synthetic
+    scene's first OUTLIER_FRAMES refine frames. Returns the phase's summary."""
+    from lidar4d_tpu_torch import native
+    from lidar4d_tpu_torch.cli import preprocess as preprocess_cli
+    from lidar4d_tpu_torch.cli.config import get_arg_parser
+    from lidar4d_tpu_torch.data import preprocess
+    from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
+    from lidar4d_tpu_torch.ops.pano import lidar_to_pano_with_intensities, pano_to_lidar
+    from lidar4d_tpu_torch.utils.pointcloud import range_filter, statistical_outlier_removal
+
+    out = {}
+    raw = f"{root}/kitti360_raw"
+    t0 = time.perf_counter()
+    lidar_dir = write_raw_kitti360(raw, RAW_SCAN_POINTS)
+    out["write_raw_s"] = time.perf_counter() - t0
+    steps = {}
+    saved = {n: getattr(preprocess, n) for n in ("generate_rangeview", "kitti360_to_nerf",
+                                                 "cal_seq_config")}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            r = fn(*args, **kwargs)
+            steps[name] = time.perf_counter() - t
+            return r
+        return run
+
+    for name, fn in saved.items():
+        setattr(preprocess, name, timed(name, fn))
+    try:
+        preprocess_cli.main(["--dataset", "kitti360", "--sequence_id", "1538", "--path", raw,
+                             "--configs_dir", f"{root}/configs"])
+    finally:
+        for name, fn in saved.items():
+            setattr(preprocess, name, fn)
+    cfg = get_arg_parser().parse_args(["--config", f"{root}/configs/kitti360_1538.txt"])
+    ds = KITTI360Dataset(split="train", root_path=cfg.path, sequence_id=cfg.sequence_id,
+                         scale=cfg.scale, offset=cfg.offset)
+    print(f"  preprocess CLI, 64 scans of {RAW_SCAN_POINTS} points at 66x1030, seconds by step "
+          f"{json.dumps({k: round(v, 3) for k, v in steps.items()})}; train split {len(ds)} "
+          f"frames {ds.images_lidar.shape}, scale {cfg.scale}, offset {cfg.offset}", flush=True)
+    if (len(ds) != 60 or ds.images_lidar.shape[1:3] != (66, 1030)
+            or not np.isfinite(ds.images_lidar).all()
+            or not np.abs(ds.poses_lidar[:, :3, 3]).max() <= 1.0 + 1e-6):
+        raise AssertionError("the preprocessed sequence does not load as 60 finite 66x1030 "
+                             "frames with poses in the unit box")
+    out["steps_s"] = steps
+
+    t0 = time.perf_counter()
+    so = native.build()
+    native.library()
+    out["native_build_s"] = time.perf_counter() - t0
+    scan = np.fromfile(os.path.join(lidar_dir, "0000001538.bin"), np.float32).reshape(-1, 4)
+    want = lidar_to_pano_with_intensities(scan, 66, 1030, FOV)
+    got = native.lidar_to_pano_native(scan, 66, 1030, *FOV)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    print(f"  native library {so.name} built in {out['native_build_s']:.2f} s; pano of one "
+          f"scan, native vs numpy: max abs error {err:.3e} (tolerance 1e-6 relative)",
+          flush=True)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+    out["native_pano_max_abs_err"] = err
+
+    refine = KITTI360Dataset(split="refine", root_path=f"{root}/scene",
+                             sequence_id=SCENE["sequence_id"], scale=scale, offset=offset)
+    clouds = []
+    for img in refine.images_lidar[:OUTLIER_FRAMES]:
+        depth = np.asarray(img[..., 2] * img[..., 0], np.float64) / scale
+        clouds.append(range_filter(pano_to_lidar(depth, refine.intrinsics_lidar))[:, :3])
+    paths = {"cKDTree": ckdtree_kept,
+             "cKDTree workers=-1": statistical_outlier_removal,
+             "native": functools.partial(statistical_outlier_removal, use_native=True)}
+    outliers = {}
+    for name, fn in paths.items():
+        t0 = time.perf_counter()
+        kept = [fn(c) for c in clouds]
+        outliers[name] = {"s_per_frame": (time.perf_counter() - t0) / len(clouds),
+                          "kept": [len(k) for k in kept], "kept_sets": kept}
+    ref = outliers["cKDTree"]["kept_sets"]
+    for name, r in outliers.items():
+        kept = r.pop("kept_sets")
+        r["differ_from_cKDTree"] = [len({tuple(p) for p in a} ^ {tuple(p) for p in b})
+                                    for a, b in zip(kept, ref)]
+        print(f"  outlier removal, {name}: {r['s_per_frame']:.3f} s/frame over "
+              f"{len(clouds)} frames of {np.mean([len(c) for c in clouds]):.0f} points; kept "
+              f"{r['kept']}; points differing from cKDTree's kept set "
+              f"{r['differ_from_cKDTree']}", flush=True)
+    if any(outliers["cKDTree workers=-1"]["differ_from_cKDTree"]):
+        raise AssertionError("workers=-1 changed the kept set")
+    out["outlier_removal"] = outliers
+    out["outlier_points_per_frame"] = [len(c) for c in clouds]
+    return out
 
 
 def main():
@@ -1555,9 +1893,7 @@ def main():
     sim.frames.clear()
     if pred is None or pred.ndim != 2 or pred.shape[1] != 4 or not np.isfinite(pred).all():
         raise AssertionError("point cloud is not a finite [M, 4] array")
-    for name, count in launches.items():
-        if (count <= 0) if name.endswith("_fwd") else (count != 0):
-            raise AssertionError(f"kernel {name}: {count} launches during the render")
+    check_launches("render", launches)
 
     torch.cuda.synchronize()
     t_steady = time.perf_counter()
@@ -1605,10 +1941,21 @@ def main():
         tfield, params, ds, cache, opt, dev)
     seconds["classic"] = time.perf_counter() - t0
 
-    phase("trainer")
-    t0 = time.perf_counter()
-    trainer_summary = check_trainer(scale, offset, dev)
-    seconds["trainer"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        phase("trainer")
+        t0 = time.perf_counter()
+        trainer_summary = check_trainer(root, scale, offset, dev)
+        seconds["trainer"] = time.perf_counter() - t0
+
+        phase("simulate")
+        t0 = time.perf_counter()
+        simulate_summary = check_simulate(root, scale, offset, dev)
+        seconds["simulate"] = time.perf_counter() - t0
+
+        phase("preprocess")
+        t0 = time.perf_counter()
+        preprocess_summary = check_preprocess(root, scale, offset)
+        seconds["preprocess"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print("seconds " + json.dumps({k: round(v, 2) for k, v in seconds.items()}), flush=True)
 
@@ -1652,6 +1999,8 @@ def main():
                     for name, line in (("hash_grid_fwd", 139), ("hash_grid_bwd", 172))}}}),
           flush=True)
     print(json.dumps({"trainer": trainer_summary}), flush=True)
+    print(json.dumps({"simulate": simulate_summary}), flush=True)
+    print(json.dumps({"preprocess": preprocess_summary}), flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 RANSAC ground-plane extraction.
 
 A numpy / scipy copy of `lidar4d_tpu/utils/pointcloud.py` (the port imports
-nothing of the JAX package). The reference's C++ kNN extension (`native/`)
-is not carried over: the outlier removal here is its scipy cKDTree path.
+nothing of the JAX package). The outlier removal runs the scipy cKDTree
+path by default and the port's C++ kNN (`lidar4d_tpu_torch.native`) when
+asked.
 
 Behavioral parity with the reference's `utils/misc.py`:
   * `range_filter` (misc.py:116-125) — distance / z-limit / ego-box mask;
@@ -41,17 +42,31 @@ def range_filter(pcd, dist_min=1, dist_max=50, z_limit=(-2.5, 4)):
     return pcd[mask]
 
 
-def statistical_outlier_removal(points, nb_neighbors=64, std_ratio=3.0):
-    """open3d remove_statistical_outlier semantics, by a scipy cKDTree kNN
-    (the reference's cKDTree path; its C++ grid-kNN extension is not
-    ported): keep the points whose mean distance to their k neighbours is
-    below the cloud's mean + std_ratio * std of that distance."""
+def statistical_outlier_removal(points, nb_neighbors=64, std_ratio=3.0, use_native=False):
+    """open3d remove_statistical_outlier semantics: keep the points whose
+    mean distance to their k neighbours is below the cloud's mean +
+    std_ratio * std of that distance.
+
+    By default a scipy cKDTree kNN, queried on every core (`workers=-1`,
+    which returns the same distances as one worker). `use_native=True` runs
+    the C++ grid kNN of `lidar4d_tpu_torch.native` (float32 coordinates),
+    building it if needed, or raises; it never falls back. The JAX package
+    defaults the other way, to its native kNN when g++ builds it. The port
+    does not: on a 57,229-point frame of the synthetic 66x1030 scene
+    (8-core Xeon host) the native kNN took 3.47 s, cKDTree 0.79 s and
+    cKDTree on every core 0.13 s, and all three kept the same 55,484
+    points.
+    """
     n = points.shape[0]
     if n <= nb_neighbors:
         return points
+    if use_native:
+        from lidar4d_tpu_torch import native
+
+        return points[native.knn_outlier_mask_native(points, nb_neighbors, std_ratio)]
     tree = cKDTree(points)
     # k+1 because the closest neighbor of each point is itself
-    dists, _ = tree.query(points, k=nb_neighbors + 1)
+    dists, _ = tree.query(points, k=nb_neighbors + 1, workers=-1)
     mean_d = dists[:, 1:].mean(axis=1)
     thresh = mean_d.mean() + std_ratio * mean_d.std()
     return points[mean_d < thresh]

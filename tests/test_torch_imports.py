@@ -49,7 +49,9 @@ def test_import_loads_no_jax_module():
             "lidar4d_tpu_torch.utils.pointcloud, lidar4d_tpu_torch.utils.misc, "
             "lidar4d_tpu_torch.eval.meters, lidar4d_tpu_torch.train.refine, "
             "lidar4d_tpu_torch.train.checkpoints, lidar4d_tpu_torch.train.trainer, "
-            "lidar4d_tpu_torch.cli.main_lidar4d; "
+            "lidar4d_tpu_torch.cli.main_lidar4d, lidar4d_tpu_torch.cli.main_lidar4d_sim, "
+            "lidar4d_tpu_torch.cli.preprocess, lidar4d_tpu_torch.data.preprocess, "
+            "lidar4d_tpu_torch.native; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lidar4d_tpu', 'orbax', 'cv2', 'imageio', 'tensorboardX')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -161,7 +161,7 @@ def test_synthetic_scene_and_dataset_match_jax(scene):
 @pytest.mark.parametrize("max_points", [0, 128])
 def test_flow_cache_matches_jax(scene, monkeypatch, max_points):
     """The same RANSAC seeds and the reference's cKDTree outlier path (the
-    port does not carry the C++ kNN): equal arrays."""
+    port's default): equal arrays."""
     monkeypatch.setattr(jnative, "available", lambda: False)
     random.seed(0)
     got = tfc.build_flow_cache(scene["refine"], scene["scale"], FRAMES, max_points=max_points)
@@ -184,12 +184,18 @@ def test_flow_cache_frames_subset(scene):
 
 
 def test_pointcloud_and_pano_match_jax():
+    """The port's cKDTree query runs on every core (workers=-1): the same kept
+    set, bit for bit, as the JAX package's one-worker query, on a small cloud
+    and on one large enough to be split between the workers."""
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(700, 3)) * [20.0, 20.0, 1.0]
     pts[:20] *= 30.0                                            # outliers
-    np.testing.assert_array_equal(
-        tpc.statistical_outlier_removal(pts, 16, 2.0),
-        jpc.statistical_outlier_removal(pts, 16, 2.0, use_native=False))
+    big = np.random.default_rng(1).normal(size=(60_000, 3)) * [20.0, 20.0, 1.0]
+    big[:20] *= 30.0
+    for cloud, k, ratio in ((pts, 16, 2.0), (big, 16, 2.0), (big, 64, 3.0)):
+        np.testing.assert_array_equal(
+            tpc.statistical_outlier_removal(cloud, k, ratio),
+            jpc.statistical_outlier_removal(cloud, k, ratio, use_native=False))
     np.testing.assert_array_equal(tpc.range_filter(pts), jpc.range_filter(pts))
     cloud = np.concatenate([pts, rng.uniform(size=(700, 1))], axis=1)
     for fn in ("lidar_to_pano_with_intensities",):
