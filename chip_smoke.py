@@ -37,6 +37,17 @@ Phases (each prints a start line):
            samples, flow loss) with their losses, ms/step, train rays/s,
            peak memory and kernel launches per step; and one step under
            torch.profiler;
+  parallel two gloo ranks on the one card (NCCL takes one card a rank),
+           each a process of its own started by parallel.launch and joined
+           within a time limit: 3 sharded flagship steps at patch 1 and 3
+           at patch (2, 8) (float32 MLPs), each step's loss and gradients on
+           rank 0 held against the single-process step from the same
+           parameters and draws at the KERNEL_STEP tolerances, each rank's
+           kernel launches per step against one process's step, the ranks'
+           parameters bitwise equal after the steps, each rank's ms/step;
+           one 66x1030 frame rendered over the ranks against one process;
+           then an NCCL process group of one rank in this process and one
+           sharded step through it against the single-process step;
   encoders Planes4D.__call__ of the flagship field on 262,144 points warped
            by the flagship flow net, at a per-ray time that includes the
            frame times 0 and 1: forward, then backward into every plane and
@@ -98,7 +109,8 @@ at its per-call sizes: ms, plain_ms, library_ms and bound_ms are sums over
 the calls of one flagship train step, and launches the count over the 7
 train steps. For plane_bilinear_vjp they are sums over the four launches of
 one Planes4D.__call__ backward, and launches the encoders phase's count.
-The classic phase's own line gives rows 1-2 (the classic one-hot route):
+The parallel phase's JSON line {"parallel": {...}} has each rank's ms/step
+and launches per step. The classic phase's own line gives rows 1-2 (the classic one-hot route):
 hash_grid_fwd and hash_grid_bwd summed over one classic step, and their
 launches over the classic steps. The last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero before either is printed. Imports
@@ -199,6 +211,14 @@ METER_RTOL = 1e-6              # the meters on the card vs on the CPU, relative
 # removal's three paths on the synthetic scene's first refine frames
 RAW_SCAN_POINTS = 100_000
 OUTLIER_FRAMES = 8
+# parallel phase: 2 gloo ranks on the one card, 3 sharded flagship steps at
+# patch 1 and 3 at patch (2, 8), float32 MLPs, each step held against the
+# single-process step at the KERNEL_STEP tolerances; one 66x1030 frame
+# rendered over the ranks against one process
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+PARALLEL_TIMEOUT = 240         # s for the ranks, their start included
+PARALLEL_RENDER_RTOL = 1e-5
 TRAIN_KERNELS = ("hash_grid_fwd", "hash_grid_bwd", "plane_bilinear_fwd", "plane_bilinear_bwd",
                  "plane_linear_fwd", "plane_linear_bwd")
 
@@ -1208,6 +1228,227 @@ def check_classic(field, params, ds, cache, opt, dev):
     return summary, launches, ms, losses
 
 
+def host_run(grads, metrics):
+    """A step's (gradients, metrics) in the form `compare_steps` takes."""
+    return ({k: float(v) for k, v in metrics.items()},
+            [None if g is None else g.cpu() for g in grads], [None] * len(grads), None)
+
+
+def parallel_steps(rank, field, signal, scene, frames, cache, opt, mesh, dev):
+    """PARALLEL_STEPS sharded flagship steps at patch 1 and at patch (2, 8)
+    on `scene`'s frames from the parameters `signal`; on rank 0 each step's loss
+    and gradients are held against the single-process step from the same
+    parameters and draws (metrics to scene["rtol"], gradients scene["grad_rtol"]).
+    Returns ms/step and the
+    kernel launches of the sharded steps alone, by patch mode."""
+    import torch.distributed as dist
+
+    from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
+    from lidar4d_tpu_torch.ops import _cuda
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=scene["scale"],
+                          num_frames=field.cfg.num_frames, iters=ITERS)
+    out = {}
+    for mode, patch in (("patch 1", 1), ("patch 2x8", (2, 8))):
+        state, optim = init_train_state(field, lr=LR, iters=ITERS,
+                                        params=tree_to_torch(signal, dev))
+        kw = dict(H=scene["H"], W=scene["W"], fov_lidar=FOV, num_rays=TRAIN_RAYS,
+                  patch_size=patch, num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
+        sharded = make_train_step(field, optim, loss_cfg, mesh=mesh, **kw)
+        single = make_train_step(field, optim, loss_cfg, **kw)
+        launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+        times = []
+        for i in range(PARALLEL_STEPS):
+            frame, draws = frames[i % STEP_FRAMES], sharded.draw()
+            if rank == 0:
+                ref = single.grads(state.params, frame, cache, draws, state.step)
+            torch.cuda.synchronize()
+            dist.barrier()              # the timed step starts on both ranks at once
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            grads, metrics = sharded.grads(state.params, frame, cache, draws, state.step)
+            optim.step(state.params, grads, state.opt_state)
+            state.step += 1
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k, v in _cuda.LAUNCHES.items():
+                launches[k] += v
+            if rank == 0:
+                compare_steps(f"{mode} step {i}: {mesh.size} ranks vs one process", field,
+                              signal, host_run(grads, metrics), host_run(*ref), scene["rtol"],
+                              scene["grad_rtol"], post_step=False)
+        want = launches_per_step(field)
+        for name, per_step in want.items():
+            if launches[name] != per_step * PARALLEL_STEPS:
+                raise AssertionError(f"rank {rank} {mode}: {name} launched {launches[name]} "
+                                     f"times in {PARALLEL_STEPS} steps, expected {per_step} a "
+                                     "step")
+        flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(state.params)])
+        ref_flat = flat.clone()
+        dist.broadcast(ref_flat, src=0)
+        if not torch.equal(ref_flat, flat):
+            raise AssertionError(f"rank {rank} {mode}: parameters differ from rank 0's after "
+                                 f"{PARALLEL_STEPS} steps")
+        out[mode] = {"ms_per_step": [t * 1e3 for t in times],
+                     "launches_per_step": {k: v / PARALLEL_STEPS for k, v in launches.items()},
+                     "params_equal_rank0": True}
+        print(f"  rank {rank} of {mesh.size}, {mode}: ms/step "
+              + ", ".join(f"{t * 1e3:.1f}" for t in times) + " (host clock; the ranks share one "
+              f"card); launches per step {json.dumps(out[mode]['launches_per_step'])}; "
+              "parameters bitwise equal to rank 0's", flush=True)
+    return out
+
+
+def parallel_rank(rank, root):
+    """One rank of the parallel phase, in a process of its own on card rank
+    modulo the cards (`rank_device`: with one card every rank shares it):
+    the sharded steps (`parallel_steps`), then one 66x1030 frame rendered
+    over the ranks, held on rank 0 against the unsharded render. Writes its
+    results to root/rank<rank>.pt."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lidar4d_tpu_torch.cli.config import build_model_config, get_arg_parser
+    from lidar4d_tpu_torch.interop import tree_to_torch
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+    from lidar4d_tpu_torch.models.renderer import render_staged
+    from lidar4d_tpu_torch.parallel.mesh import make_mesh, rank_device
+    from lidar4d_tpu_torch.sim.simulator import build_novel_rays
+    from lidar4d_tpu_torch.train.train_step import flow_cache_to_device
+
+    dev = rank_device("cuda", rank)
+    torch.cuda.set_device(dev)
+    inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    opt = get_arg_parser().parse_args(["--config", CONFIG])
+    opt.near_lidar *= opt.scale
+    opt.far_lidar *= opt.scale
+    field = train_field(LiDAR4DField(build_model_config(opt), device=dev), inputs["scale"])
+    signal = signal_params(field.init(seed=SEED))
+    mesh = make_mesh()
+    frames = [{k: torch.as_tensor(v, device=dev) if k != "time" else v for k, v in f.items()}
+              for f in inputs["frames"]]
+    cache = flow_cache_to_device(inputs["cache"], dev)
+    with mlp_dtype(torch.float32):
+        out = {"steps": parallel_steps(rank, field, signal, inputs, frames, cache, opt, mesh,
+                                       dev)}
+
+    params = tree_to_torch(signal, dev)
+    frame = inputs["frames"][0]
+    rays_o, rays_d = build_novel_rays(np.asarray(frame["pose"])[None], opt.H_lidar, opt.W_lidar,
+                                      opt.fov_lidar)
+    ro, rd = (torch.as_tensor(r[0], dtype=torch.float32, device=dev) for r in (rays_o, rays_d))
+    kw = dict(num_steps=opt.num_steps, chunk=16384, num_coarse=opt.num_coarse,
+              num_fine=opt.num_fine)
+    with mlp_dtype(torch.float32):
+        render_staged(field, params, ro[:16384], rd[:16384], frame["time"], mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = render_staged(field, params, ro, rd, frame["time"], mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out["render_s"] = time.perf_counter() - t0
+        if rank == 0:
+            t0 = time.perf_counter()
+            want = render_staged(field, params, ro, rd, frame["time"], **kw)
+            torch.cuda.synchronize()
+            out["render_single_s"] = time.perf_counter() - t0
+            out["render_rel_err"] = {}
+            for k in want:
+                scale = want[k].abs().max().item()
+                err = (got[k] - want[k]).abs().max().item() / scale
+                out["render_rel_err"][k] = err
+                print(f"  render {opt.H_lidar}x{opt.W_lidar} over {mesh.size} ranks vs one "
+                      f"process, {k}: max relative error {err:.3e} (tolerance "
+                      f"{PARALLEL_RENDER_RTOL:g})", flush=True)
+                if not (torch.isfinite(got[k]).all() and err <= PARALLEL_RENDER_RTOL):
+                    raise AssertionError(f"sharded render {k} disagrees: {err}")
+    print(f"  rank {rank}: the frame rendered over {mesh.size} ranks in {out['render_s']:.3f} s"
+          + (f" (one process: {out['render_single_s']:.3f} s)" if rank == 0 else ""), flush=True)
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def check_nccl_one_rank(field, params, ds, cache, opt, dev):
+    """A process group of one rank on the card with NCCL and one sharded
+    flagship step through it (every collective of the step runs), held
+    against the single-process step on the same draws. Returns its loss gap."""
+    import torch.distributed as dist
+
+    from lidar4d_tpu_torch.parallel.mesh import make_mesh
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.train.train_step import (
+        flow_cache_to_device, init_train_state, make_train_step)
+
+    signal = signal_params(params)
+    loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
+                          num_frames=field.cfg.num_frames, iters=ITERS)
+    fc = flow_cache_to_device(cache, dev)
+    with tempfile.TemporaryDirectory() as root, mlp_dtype(torch.float32):
+        dist.init_process_group("nccl", init_method=f"file://{root}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            from lidar4d_tpu_torch.interop import tree_to_torch
+
+            state, optim = init_train_state(field, lr=LR, iters=ITERS,
+                                            params=tree_to_torch(signal, dev))
+            kw = dict(H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV, num_rays=TRAIN_RAYS,
+                      num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
+            sharded = make_train_step(field, optim, loss_cfg, mesh=make_mesh(1), **kw)
+            single = make_train_step(field, optim, loss_cfg, **kw)
+            draws = sharded.draw()
+            frame = ds.frame(0)
+            ref = single.grads(state.params, frame, fc, draws, 0)
+            got = sharded.grads(state.params, frame, fc, draws, 0)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+
+    compare_steps("NCCL, 1 rank vs one process", field, signal, host_run(*got), host_run(*ref),
+                  KERNEL_STEP_RTOL, KERNEL_STEP_GRAD_RTOL, post_step=False)
+    m_got, m_ref = host_run(*got)[0], host_run(*ref)[0]
+    return abs(m_got["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
+
+
+def run_parallel_ranks(ds, cache, world, backend, rtol=KERNEL_STEP_RTOL,
+                       grad_rtol=KERNEL_STEP_GRAD_RTOL):
+    """`world` ranks of `parallel_rank` on `backend`, joined within
+    PARALLEL_TIMEOUT (killed and reported otherwise), the steps' metrics
+    held to `rtol` and their gradients to `grad_rtol` by group. Returns
+    (seconds with their start, each rank's results)."""
+    from lidar4d_tpu_torch.parallel.launch import join_ranks, start_ranks
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        torch.save({"scale": ds.scale, "H": ds.H_lidar, "W": ds.W_lidar, "cache": cache,
+                    "frames": [ds.frame(i) for i in range(STEP_FRAMES)], "rtol": rtol,
+                    "grad_rtol": grad_rtol},
+                   os.path.join(root, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = start_ranks(parallel_rank, (root,), world, f"file://{root}/rendezvous", backend)
+        join_ranks(procs, PARALLEL_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    print(f"  {world} {backend} ranks on {torch.cuda.device_count()} card(s): {seconds:.1f} s "
+          "with their start", flush=True)
+    return seconds, [{"steps": r["steps"], "render_s": r["render_s"],
+                      **{k: r[k] for k in ("render_single_s", "render_rel_err") if k in r}}
+                     for r in ranks]
+
+
+def check_parallel(field, params, ds, cache, opt, dev):
+    """The parallel phase: PARALLEL_RANKS gloo ranks on the one card
+    (`run_parallel_ranks`; NCCL takes one card a rank), then a one-rank NCCL
+    group in this process. Returns the phase's summary."""
+    ranks_s, ranks = run_parallel_ranks(ds, cache, PARALLEL_RANKS, "gloo")
+    nccl_gap = check_nccl_one_rank(field, params, ds, cache, opt, dev)
+    print(f"  NCCL one-rank step loss gap {nccl_gap:.3e}", flush=True)
+    return {"ranks": PARALLEL_RANKS, "backend": "gloo", "steps": PARALLEL_STEPS,
+            "ranks_s": ranks_s, "nccl_world_1_loss_gap": nccl_gap, "by_rank": ranks}
+
+
 class TrainerProbe:
     """Instrumentation of the trainer phase: a Trainer subclass that records,
     stage by stage, seconds, kernel launches and (refine) peak memory, and
@@ -1930,6 +2171,11 @@ def main():
     train_launches, _, _ = train(tfield, params, ds, cache, opt, dev)
     seconds["train"] = time.perf_counter() - t0
 
+    phase("parallel")
+    t0 = time.perf_counter()
+    parallel_summary = check_parallel(tfield, params, ds, cache, opt, dev)
+    seconds["parallel"] = time.perf_counter() - t0
+
     phase("encoders")
     t0 = time.perf_counter()
     encoder_launches, encoder_summary = check_encoders(tfield, params, ds, opt, dev)
@@ -1998,6 +2244,7 @@ def main():
                                replaces=f"{onehot}:{line}")
                     for name, line in (("hash_grid_fwd", 139), ("hash_grid_bwd", 172))}}}),
           flush=True)
+    print(json.dumps({"parallel": parallel_summary}), flush=True)
     print(json.dumps({"trainer": trainer_summary}), flush=True)
     print(json.dumps({"simulate": simulate_summary}), flush=True)
     print(json.dumps({"preprocess": preprocess_summary}), flush=True)

@@ -6,9 +6,9 @@ config format supplies defaults, command-line flags override. Flag names,
 defaults and meanings are the reference's; the port adds `--device`. It
 leaves out the flags that would change nothing here: the TPU memory policies
 (`--remat_density`, `--density_chunk`), `--fp16` (the MLPs always run in
-bfloat16), `--preload` and `--num_hosts`. `--num_devices` and `--mesh` are
-parsed, and anything but one device and the default mesh is refused
-(`check_single_device`).
+bfloat16) and `--preload`. `--num_devices`, `--mesh` and `--num_hosts` set
+the ray-parallel layout (`train.trainer.mesh_from_options`), and
+`ranks_to_start` how many local ranks the CLI starts for it.
 """
 
 import argparse
@@ -168,9 +168,14 @@ def get_arg_parser(default_config="configs/kitti360_4950.txt"):
                    help="train with the uniform sampler (num_coarse + num_fine "
                         "samples) for this many steps before hierarchical sampling")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="devices to shard ray batches over; the port trains on one "
-                        "(0 or 1), more is not ported yet")
-    p.add_argument("--mesh", type=str, default="dp", choices=["dp", "dcn,ici"])
+                   help="shard ray batches over this many devices, one rank each (0 = "
+                        "every rank of the process group, one without a group)")
+    p.add_argument("--mesh", type=str, default="dp", choices=["dp", "dcn,ici"],
+                   help="device layout: 'dp' = 1-D ray data parallelism; 'dcn,ici' = "
+                        "hosts x each host's devices, gradients summed within each host "
+                        "before across hosts")
+    p.add_argument("--num_hosts", type=int, default=0,
+                   help="rows of the dcn,ici mesh (0 = the hosts the ranks run on)")
     p.add_argument("--max_epochs", type=int, default=0,
                    help="stop after this many epochs, keeping the --iters lr "
                         "schedule (0 = the whole schedule)")
@@ -192,13 +197,23 @@ def get_arg_parser(default_config="configs/kitti360_4950.txt"):
     return p
 
 
-def check_single_device(opt):
-    """The port trains on one device: --num_devices above 1, or a mesh other
-    than the default, is refused."""
-    if (getattr(opt, "num_devices", 0) or 0) > 1 or getattr(opt, "mesh", "dp") != "dp":
-        raise NotImplementedError(
-            f"--num_devices {opt.num_devices} --mesh {opt.mesh}: ray-parallel training over "
-            "several devices is not ported yet (ROADMAP Queue A, A8); use --num_devices 1")
+def ranks_to_start(opt):
+    """Local ranks the CLI starts when no process group exists: 1 for
+    --num_devices 0 or 1 (one device), else N, one a device: on CUDA (NCCL)
+    one card each, so N may not exceed this host's cards; on the CPU N
+    processes."""
+    import torch
+
+    n = max(getattr(opt, "num_devices", 0) or 0, 1)
+    device = torch.device(opt.device)
+    if n > 1 and device.type == "cuda":
+        if device.index is not None:
+            raise ValueError(f"--num_devices {n} --device {opt.device}: each rank takes its own "
+                             "card; give --device cuda")
+        if n > torch.cuda.device_count():
+            raise ValueError(f"--num_devices {n} on cuda: NCCL takes one card a rank, and this "
+                             f"host has {torch.cuda.device_count()}")
+    return n
 
 
 def build_model_config(opt):

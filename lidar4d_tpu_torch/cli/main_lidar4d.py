@@ -15,40 +15,103 @@ raises).
 
 A workspace that holds the JAX package's checkpoints (orbax directories
 under the same names) is refused before anything is written there.
+
+Ray parallelism: with LIDAR4D_COORDINATOR / LIDAR4D_NUM_PROCS /
+LIDAR4D_PROC_ID set, this process is one rank of that process group (one
+process a device, each started by the user, all with the same flags; on a
+host with several cards rank r takes card r modulo their count). Without
+them, `--num_devices N` (N > 1) starts N local ranks itself: this process
+is rank 0 and N - 1 spawned processes are the others, one a card (NCCL)
+or, under `--device cpu`, N processes on the CPU (gloo); `main` returns
+rank 0's Trainer. A rank that fails ends the run.
 """
 
 import os
+import shutil
+import sys
+import tempfile
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from lidar4d_tpu_torch.cli.config import (
     build_loss_config,
     build_model_config,
-    check_single_device,
     get_arg_parser,
+    ranks_to_start,
 )
 from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
 from lidar4d_tpu_torch.eval.meters import DepthMeter, IntensityMeter, PointsMeter, RaydropMeter
 from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
 from lidar4d_tpu_torch.ops._cuda import resolve_device
+from lidar4d_tpu_torch.parallel.launch import join_ranks, kill_ranks, start_ranks
+from lidar4d_tpu_torch.parallel.mesh import default_backend, init_distributed, rank_device
 from lidar4d_tpu_torch.train.checkpoints import check_workspace
 from lidar4d_tpu_torch.train.trainer import Trainer
 from lidar4d_tpu_torch.utils.misc import set_seed
 
+RANK_EXIT_S = 120      # for the other ranks to end once rank 0 has
+
 
 def main(argv=None):
-    """Run the CLI on `argv` (sys.argv when None); returns the Trainer."""
+    """Run the CLI on `argv` (sys.argv when None); returns the Trainer (rank
+    0's where it starts ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     opt = get_arg_parser().parse_args(argv)
-    device = resolve_device(opt.device)
-    check_single_device(opt)
+    resolve_device(opt.device)
+    if init_distributed(device=opt.device):
+        return _run(opt)
+    n = ranks_to_start(opt)
+    return _run(opt) if n == 1 else _run_local_ranks(argv, opt, n)
+
+
+def _rank_main(rank, argv):
+    _run(get_arg_parser().parse_args(argv))
+
+
+def _run_local_ranks(argv, opt, n):
+    """Rank 0 here, ranks 1 .. n - 1 spawned; returns rank 0's Trainer."""
+    backend = default_backend(opt.device)
+    threads = max(1, torch.get_num_threads() // n) if backend == "gloo" else 0
+    tmp = tempfile.mkdtemp(prefix="lidar4d_ranks_")
+    init = f"file://{tmp}/rendezvous"
+    procs = start_ranks(_rank_main, (argv,), n, init, backend, first=1, threads=threads)
+    try:
+        dist.init_process_group(backend, init_method=init, world_size=n, rank=0)
+        try:
+            trainer = _run(opt)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        join_ranks(procs, RANK_EXIT_S)
+    finally:
+        kill_ranks(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return trainer
+
+
+def _barrier():
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _run(opt):
+    """The CLI's work on this process's rank (the only one without a
+    process group)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    device = rank_device(opt.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     set_seed(opt.seed)
     check_workspace(opt.workspace)
 
     # args dump (main_lidar4d.py:140-145)
-    os.makedirs(opt.workspace, exist_ok=True)
-    with open(os.path.join(opt.workspace, "args.txt"), "w") as f:
-        for arg in vars(opt):
-            f.write(f"{arg} = {getattr(opt, arg)}\n")
+    if rank == 0:
+        os.makedirs(opt.workspace, exist_ok=True)
+        with open(os.path.join(opt.workspace, "args.txt"), "w") as f:
+            for arg in vars(opt):
+                f.write(f"{arg} = {getattr(opt, arg)}\n")
 
     # near / far scaled into the unit box (main_lidar4d.py:152-153)
     opt.near_lidar = opt.near_lidar * opt.scale
@@ -63,7 +126,7 @@ def main(argv=None):
     # so the config's scale and offset stay valid)
     if opt.dataloader == "synthetic":
         tf = os.path.join(opt.path, f"transforms_{opt.sequence_id}_train.json")
-        if not os.path.exists(tf):
+        if rank == 0 and not os.path.exists(tf):
             from lidar4d_tpu_torch.data.synthetic import generate_synthetic_sequence
 
             scale, _ = generate_synthetic_sequence(
@@ -73,6 +136,7 @@ def main(argv=None):
             if abs(scale - opt.scale) > 1e-6 * max(abs(scale), 1e-9):
                 print(f"[WARN] generated scale {scale} != config scale {opt.scale}; "
                       "config values win")
+        _barrier()
 
     field = LiDAR4DField(build_model_config(opt), device=device)
     loss_cfg = build_loss_config(opt)
@@ -106,7 +170,8 @@ def main(argv=None):
     max_epoch = int(np.ceil(opt.iters / len(train_ds)))
     if opt.max_epochs:
         max_epoch = min(max_epoch, opt.max_epochs)
-    print(f"max_epoch: {max_epoch}")
+    if rank == 0:
+        print(f"max_epoch: {max_epoch}")
     trainer.train(train_ds, make_ds("val"), make_ds("refine"), max_epoch,
                   run_refine=not opt.train_only)
     if opt.train_only:

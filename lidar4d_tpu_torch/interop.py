@@ -66,3 +66,20 @@ def params_from_jax(field, jax_tree):
     if want != got:
         raise ValueError(f"JAX parameter tree does not match the field:\n{got}\n!=\n{want}")
     return tree_to_torch(jax_tree, field.device)
+
+
+def stacked_params_from_jax(field, jax_stack):
+    """The parameters of the JAX package's `init_multiseq_state` (every leaf
+    with a leading [S] axis, given as numpy arrays) as the port's stacked
+    parameters on `field.device` (`parallel.multiseq`). Each sequence's
+    slice must have exactly the structure and shapes of the port's init for
+    `field.cfg`, as in `params_from_jax`."""
+    n_seq = {np.shape(a)[0] if np.ndim(a) else None for a in tree_leaves(jax_stack)}
+    if len(n_seq) != 1 or None in n_seq:
+        raise ValueError(f"not a stack of parameter trees: leading axes {sorted(map(str, n_seq))}")
+    s = n_seq.pop()
+    want = tree_map(lambda a: (s, *np.shape(a)), field.init(seed=0))
+    got = tree_map(np.shape, jax_stack)
+    if want != got:
+        raise ValueError(f"JAX parameter stack does not match the field:\n{got}\n!=\n{want}")
+    return tree_to_torch(jax_stack, field.device)

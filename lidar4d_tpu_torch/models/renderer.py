@@ -17,6 +17,7 @@ flagship config); PERF.md records the peak device memory this costs.
 import torch
 
 from lidar4d_tpu_torch.ops._cuda import resolve_device
+from lidar4d_tpu_torch.parallel.mesh import gather_rays, shard_rays
 
 
 def sample_pdf(z_mid, weights, n_samples, u_jitter=None):
@@ -164,15 +165,31 @@ def render_rays(field, params, rays_o, rays_d, t, num_steps=768, num_coarse=0,
 
 @torch.no_grad()
 def render_staged(field, params, rays_o, rays_d, t, num_steps=768, chunk=4096,
-                  num_coarse=0, num_fine=0):
-    """Full-frame render of rays_o / rays_d [N, 3] in chunks of `chunk` rays."""
+                  num_coarse=0, num_fine=0, mesh=None):
+    """Full-frame render of rays_o / rays_d [N, 3] in chunks of `chunk` rays.
+
+    With `mesh` (`parallel.mesh`; every rank calls this with the same rays
+    and parameters) each chunk's rays are split over the ranks, a chunk that
+    does not split evenly padded with rays along +x that are dropped after,
+    and the outputs gathered: every rank returns the whole frame.
+    """
     depths, images = [], []
     for s in range(0, rays_o.shape[0], chunk):
-        r = render_rays(field, params, rays_o[s:s + chunk], rays_d[s:s + chunk], t,
-                        num_steps=num_steps, num_coarse=num_coarse, num_fine=num_fine,
-                        with_aux=False)
-        depths.append(r["depth_lidar"])
-        images.append(r["image_lidar"])
+        o, d = rays_o[s:s + chunk], rays_d[s:s + chunk]
+        n = o.shape[0]
+        if mesh is not None:
+            pad = (-n) % mesh.size
+            o = torch.cat([o, o.new_zeros((pad, 3))])
+            d = torch.cat([d, o.new_tensor([1.0, 0.0, 0.0]).expand(pad, 3)])
+            o, d = shard_rays(mesh, o, d)
+        r = render_rays(field, params, o, d, t, num_steps=num_steps, num_coarse=num_coarse,
+                        num_fine=num_fine, with_aux=False)
+        depth, image = r["depth_lidar"], r["image_lidar"]
+        if mesh is not None:
+            out = gather_rays(mesh, torch.cat([depth[:, None], image], 1))[:n]
+            depth, image = out[:, 0], out[:, 1:]
+        depths.append(depth)
+        images.append(image)
     return {"depth_lidar": torch.cat(depths), "image_lidar": torch.cat(images)}
 
 
@@ -184,12 +201,14 @@ render_staged_host = render_staged
 
 @torch.no_grad()
 def render_frames_staged(field, params, rays_o, rays_d, times, num_steps=768,
-                         chunk=16384, num_coarse=0, num_fine=0, device="cuda"):
+                         chunk=16384, num_coarse=0, num_fine=0, device="cuda", mesh=None):
     """Multi-frame render, the simulator's hot path.
 
     rays_o / rays_d: [B, N, 3] (numpy or tensors), times: B scalars in [0, 1].
     Everything runs on `device` (CUDA unless told otherwise); the field's
-    parameters must live there. Returns depth [B, N] and image [B, N, 2].
+    parameters must live there. With `mesh`, each chunk's rays are split
+    over its ranks (`render_staged`). Returns depth [B, N] and image
+    [B, N, 2].
     """
     device = resolve_device(device)
     rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=device)
@@ -197,7 +216,7 @@ def render_frames_staged(field, params, rays_o, rays_d, times, num_steps=768,
     times = torch.as_tensor(times, dtype=torch.float32).cpu().numpy()
     outs = [render_staged(field, params, rays_o[b], rays_d[b], times[b],
                           num_steps=num_steps, chunk=chunk, num_coarse=num_coarse,
-                          num_fine=num_fine)
+                          num_fine=num_fine, mesh=mesh)
             for b in range(rays_o.shape[0])]
     return {"depth_lidar": torch.stack([o["depth_lidar"] for o in outs]),
             "image_lidar": torch.stack([o["image_lidar"] for o in outs])}

@@ -73,12 +73,17 @@ class Simulator:
         return self.field.unet.apply(self.params["unet"], x)[0, 0]
 
     def render(self, rays_o, rays_d, times, save_pc=True, save_img=True,
-               save_video=True, frame_batch=8):
+               save_video=True, mesh=None, frame_batch=8):
         """rays_o / rays_d: [B, H*W, 3]; times: [B] in [0, 1].
 
-        Renders `frame_batch` frames per `render_frames_staged` call.
+        Renders `frame_batch` frames per `render_frames_staged` call. With
+        `mesh` (every rank calls this alike, with its own device) each
+        frame's rays are split over the ranks, every rank gets the whole
+        frame, and rank 0 alone writes files.
         Returns the last frame's point cloud [M, 4] (xyz + intensity).
         """
+        if mesh is not None and mesh.rank != 0:
+            save_pc = save_img = save_video = False
         H, W = self.H_lidar, self.W_lidar
         b_total = rays_o.shape[0]
         video = []
@@ -90,7 +95,7 @@ class Simulator:
                 num_steps=self.opt.num_steps,
                 num_coarse=getattr(self.opt, "num_coarse", 0),
                 num_fine=getattr(self.opt, "num_fine", 0),
-                device=self.device,
+                device=self.device, mesh=mesh,
             )
             for k in range(out["depth_lidar"].shape[0]):
                 i = s + k

@@ -13,8 +13,17 @@ feed the reference's own draws in: `inds` [N] ray pixel indices,
 ground zero-flow term. Without `draws` the step draws the tensors from a
 `torch.Generator` on the field's device and `t_rand` from one on the host
 (it sets host-side Lagrange weights, so a device draw would stall the
-host on the device). The reference's ray-parallel `mesh` option is not
-ported here.
+host on the device).
+
+Ray parallelism (`mesh`, a layout of `parallel.mesh`): every rank takes the
+same global draws (rank 0's, broadcast), renders its contiguous block of
+the batch's rays and computes a local loss such that the ranks' local
+losses sum to the single-process loss: the per-ray lidar and line-of-sight
+sums over its own rays (the latter over the global count of valid rays),
+and the terms that need the whole batch or no ray at all (the batch
+chamfer and the patch gradient loss on the gathered operands, the flow
+loss) each weighted by 1 / size. One all-reduce then sums the gradients
+and the metrics, so every rank applies the single-process update.
 """
 
 from dataclasses import dataclass
@@ -27,6 +36,7 @@ from lidar4d_tpu_torch.interop import tree_leaves
 from lidar4d_tpu_torch.models.renderer import render_draws, render_rays
 from lidar4d_tpu_torch.ops.chamfer import chamfer_distance_fast
 from lidar4d_tpu_torch.ops.rays import get_lidar_rays, patch_dims, sample_ray_indices
+from lidar4d_tpu_torch.parallel.mesh import all_reduce, gather_rays, replicate, shard_rays
 from lidar4d_tpu_torch.train.ema import EmaState, ema_init
 from lidar4d_tpu_torch.train.losses import (
     LossConfig,
@@ -129,21 +139,28 @@ def _flow_loss(field, params, cache, frame_idx, t, t_rand):
     return loss + 0.001 * torch.sum(g_abs) * valid[frame_idx]
 
 
-def _urf_loss(weights, z_vals, gt_depth, step, cfg: LossConfig):
-    """Line-of-sight loss (reference `_urf_loss`)."""
+def _urf_loss(weights, z_vals, gt_depth, step, cfg: LossConfig, mesh=None):
+    """Line-of-sight loss (reference `_urf_loss`); with `mesh`, this rank's
+    share: its rays' sums over the whole batch's valid-ray count and
+    largest density."""
     eps = float(np.float32(0.02) * np.float32(0.1) ** np.minimum(
         np.float32(step) / np.float32(cfg.iters), np.float32(1.0)))
     gt = gt_depth.reshape(z_vals.shape[0], 1)
-    n_valid = torch.clamp(torch.sum((gt > 0.0).float()), min=1.0)
+    n_valid = torch.sum((gt > 0.0).float())
 
     mask_empty = ((z_vals < gt - eps) | (z_vals > gt + eps)).float()
-    loss_empty = torch.sum((mask_empty * weights) ** 2) / n_valid
 
     mask_near = ((z_vals > gt - eps) & (z_vals < gt + eps)).float()
     distance = mask_near * (z_vals - gt)
     sigma = eps / 3.0
     distr = 1.0 / (sigma * np.sqrt(2 * np.pi)) * torch.exp(-(distance ** 2) / (2 * sigma ** 2))
-    distr = distr / torch.clamp(torch.max(distr), min=1e-12)
+    distr_max = torch.max(distr)
+    if mesh is not None:
+        counts = gather_rays(mesh, torch.stack([n_valid, distr_max])).reshape(-1, 2)
+        n_valid, distr_max = counts[:, 0].sum(), counts[:, 1].max()
+    n_valid = torch.clamp(n_valid, min=1.0)
+    loss_empty = torch.sum((mask_empty * weights) ** 2) / n_valid
+    distr = distr / torch.clamp(distr_max, min=1e-12)
     distr = distr * mask_near
     loss_near = torch.sum((mask_near * weights - distr) ** 2) / n_valid
     return 0.1 * loss_empty + 0.1 * loss_near
@@ -157,17 +174,30 @@ class TrainStep:
     dict(pose [4, 4], image [H, W, 3] = (ray-drop, intensity, depth * scale),
     time), as numpy arrays or tensors; flow_cache the device tensors of
     `flow_cache_to_device` (or None). The state's parameters are updated in
-    place; metrics are 0-d device tensors.
+    place; metrics are 0-d device tensors. With `mesh` every rank of it
+    calls the step with the same state, frame and cache; the batch (the
+    draws' rays: in patch mode, whole patches) must split evenly over the
+    ranks, and metrics and gradients come back summed over them.
     """
 
     def __init__(self, field, opt, loss_cfg: LossConfig, *, H, W, fov_lidar, num_rays=1024,
                  num_steps=768, patch_size=1, num_coarse=0, num_fine=0, seed=0,
-                 generators=None):
+                 generators=None, mesh=None):
         self.field, self.opt, self.cfg = field, opt, loss_cfg
         self.H, self.W, self.fov_lidar = H, W, tuple(fov_lidar)
         self.num_rays, self.num_steps = num_rays, num_steps
         self.num_coarse, self.num_fine = num_coarse, num_fine
         self.px, self.py = patch_dims(patch_size)
+        self.mesh = mesh
+        if mesh is not None:
+            n = min(num_rays, H * W)
+            if self.px > 1 and (n // (self.px * self.py)) % mesh.size:
+                raise ValueError(
+                    f"{n // (self.px * self.py)} patches of {self.px}x{self.py} rays do not "
+                    f"split evenly over {mesh.size} ranks: a rank's block of the batch must "
+                    "hold whole patches")
+            if self.px == 1 and n % mesh.size:
+                raise ValueError(f"num_rays {n} does not split evenly over {mesh.size} ranks")
         if generators is None:
             generators = (torch.Generator(device=field.device), torch.Generator())
             for g in generators:
@@ -186,15 +216,19 @@ class TrainStep:
                              self.generator, dev)
         draws["inds"] = inds
         draws["t_rand"] = float(torch.rand((), generator=self.host_generator))
-        return draws
+        return replicate(self.mesh, draws)
 
     def loss_fn(self, params, frame, flow_cache, draws, step):
-        """(loss, metrics) of one batch."""
-        cfg, field = self.cfg, self.field
+        """(loss, metrics) of one batch; with the mesh, this rank's share of
+        each (see the module docstring)."""
+        cfg, field, mesh = self.cfg, self.field, self.mesh
         dev = field.device
         pose = torch.as_tensor(frame["pose"], dtype=torch.float32, device=dev)
         image = torch.as_tensor(frame["image"], dtype=torch.float32, device=dev)
         t = np.float32(frame["time"])
+        if mesh is not None:
+            draws = {k: shard_rays(mesh, torch.as_tensor(v, device=dev)) if k != "t_rand" else v
+                     for k, v in draws.items()}
         rays = get_lidar_rays(pose, self.fov_lidar, self.H, self.W, N=self.num_rays,
                               patch_size=(self.px, self.py), inds=draws["inds"])
         rays_o, rays_d, inds = rays["rays_o"], rays["rays_d"], rays["inds"]
@@ -220,26 +254,39 @@ class TrainStep:
         loss = torch.sum(lidar_loss)
         metrics = {"lidar_loss": loss}
 
-        pred_lidar = rays_d * pred_depth[:, None] / cfg.scale
-        gt_lidar = rays_d * gt_depth[:, None] / cfg.scale
+        def whole_batch(term):
+            """A term every rank computes alike: its share of the sum."""
+            return term if mesh is None else term / mesh.size
+
+        # the whole batch's rays, for the terms that need them all
+        batch_d, batch_pred, batch_gt, batch_drop = rays_d, pred_depth, gt_depth, gt_raydrop
+        if mesh is not None:
+            cols = gather_rays(mesh, torch.cat(
+                [rays_d, pred_depth[:, None], gt_depth[:, None], gt_raydrop[:, None]], 1))
+            batch_d, batch_pred, batch_gt, batch_drop = (
+                cols[:, :3], cols[:, 3], cols[:, 4], cols[:, 5])
+        pred_lidar = batch_d * batch_pred[:, None] / cfg.scale
+        gt_lidar = batch_d * batch_gt[:, None] / cfg.scale
         d1, d2, _, _ = chamfer_distance_fast(pred_lidar[None], gt_lidar[None])
-        chamfer_l = torch.mean(d1 + d2) * 0.5
+        chamfer_l = whole_batch(torch.mean(d1 + d2) * 0.5)
         loss = loss + chamfer_l
         metrics["chamfer_loss"] = chamfer_l
 
         if cfg.flow_loss and flow_cache is not None:
             frame_idx = int(np.floor(t * np.float32(cfg.num_frames - 1) + np.float32(0.5)))
-            fl = _flow_loss(field, params, flow_cache, frame_idx, t, np.float32(draws["t_rand"]))
+            fl = whole_batch(_flow_loss(field, params, flow_cache, frame_idx, t,
+                                        np.float32(draws["t_rand"])))
             loss = loss + fl
             metrics["flow_loss"] = fl
 
         if cfg.urf_loss:
-            ul = _urf_loss(out["weights"], out["z_vals"], gt_depth, step, cfg)
+            ul = _urf_loss(out["weights"], out["z_vals"], gt_depth, step, cfg, mesh)
             loss = loss + ul
             metrics["urf_loss"] = ul
 
         if self.px > 1:
-            gl = _gradient_loss(pred_depth, gt_depth, gt_raydrop, cfg, self.px, self.py)
+            gl = whole_batch(_gradient_loss(batch_pred, batch_gt, batch_drop, cfg, self.px,
+                                            self.py))
             loss = loss + gl
             metrics["grad_loss"] = gl
 
@@ -248,14 +295,24 @@ class TrainStep:
 
     def grads(self, params, frame, flow_cache, draws, step):
         """(gradient of every parameter leaf in tree order, None where a leaf
-        takes no part, metrics)."""
+        takes no part, metrics); with the mesh, both summed over its ranks
+        in one all-reduce."""
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
             loss, metrics = self.loss_fn(params, frame, flow_cache, draws, step)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is None:
+            return grads, metrics
+        live = [g for g in grads if g is not None]
+        names = sorted(metrics)
+        flat = all_reduce(self.mesh, torch.cat(
+            [g.reshape(-1) for g in live] + [torch.stack([metrics[k] for k in names])]))
+        parts = iter(flat.split([g.numel() for g in live] + [len(names)]))
+        grads = [None if g is None else next(parts).view_as(g) for g in grads]
+        return grads, dict(zip(names, next(parts).unbind()))
 
     def __call__(self, state: TrainState, frame, flow_cache, draws=None):
         draws = self.draw() if draws is None else draws
@@ -267,10 +324,11 @@ class TrainStep:
 
 def make_train_step(field, opt, loss_cfg: LossConfig, *, H, W, fov_lidar, num_rays=1024,
                     num_steps=768, patch_size=1, num_coarse=0, num_fine=0, seed=0,
-                    generators=None):
+                    generators=None, mesh=None):
     """Build the train step of one sampling mode (see `TrainStep`). It draws
     from `generators`, a (device, host) pair of torch.Generators that several
-    steps may share, or from its own pair seeded with `seed`."""
+    steps may share, or from its own pair seeded with `seed`; with `mesh`
+    the batch's rays are split over its ranks."""
     return TrainStep(field, opt, loss_cfg, H=H, W=W, fov_lidar=fov_lidar, num_rays=num_rays,
                      num_steps=num_steps, patch_size=patch_size, num_coarse=num_coarse,
-                     num_fine=num_fine, seed=seed, generators=generators)
+                     num_fine=num_fine, seed=seed, generators=generators, mesh=mesh)

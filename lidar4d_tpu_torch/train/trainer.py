@@ -1,7 +1,7 @@
 """Training orchestration: epochs, evaluation, checkpoints, refine, test.
 
 Port of `lidar4d_tpu/train/trainer.py` (the reference's `Trainer`,
-`model/runner.py:32-1073`) on one device:
+`model/runner.py:32-1073`):
   * train / train_one_epoch: the patch size alternates by epoch, the first
     `hier_warmup_iters` steps take the uniform sampler and the rest
     hierarchical sampling, one train step per (H, W, patch, sampler); the
@@ -14,8 +14,17 @@ Port of `lidar4d_tpu/train/trainer.py` (the reference's `Trainer`,
   * test: point-cloud npys, and PNGs or videos where cv2 / imageio exist;
   * refine: the U-Net on every train frame's render (`train.refine`).
 
-What the JAX trainer does only for its own framework is left out: the
-device mesh (the port trains on one device, `cli.config.check_single_device`);
+Ray parallelism (`--num_devices` / `--mesh` / `--num_hosts`, as the JAX
+trainer reads them): in a process group of N ranks, one a device, every
+rank runs this Trainer alike on its own device; the steps split each batch
+and the renders each chunk over the ranks (`parallel.mesh`); parameters,
+EMA and the flow cache are rank 0's, broadcast; rank 0 alone writes logs,
+metrics, panels, checkpoints and test outputs, the others waiting for it
+after each checkpoint. The U-Net refine trains on every rank (so that none
+waits minutes in a collective) and rank 0's is broadcast: its card
+convolutions are not deterministic, so the ranks' U-Nets drift apart.
+
+What the JAX trainer does only for its own framework is left out:
 `jax.profiler` (`--profile` traces with `torch.profiler`); the orbax
 checkpoint layouts and their legacy-optimizer fallbacks (one `torch.save`
 layout here, which a params-only restore reads too). The first step of a new
@@ -32,11 +41,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lidar4d_tpu_torch.interop import tree_leaves, tree_map, tree_paths
 from lidar4d_tpu_torch.models.renderer import render_staged
 from lidar4d_tpu_torch.ops.pano import pano_to_lidar
 from lidar4d_tpu_torch.ops.rays import get_lidar_rays
+from lidar4d_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    make_hierarchical_mesh,
+    make_mesh,
+    replicate,
+)
 from lidar4d_tpu_torch.train.checkpoints import CheckpointManager
 from lidar4d_tpu_torch.train.ema import EmaState, ema_init, ema_params, ema_update
 from lidar4d_tpu_torch.train.flow_cache import build_flow_cache
@@ -63,6 +80,23 @@ def _cv2():
 
 def _same_shapes(a, b):
     return tree_map(lambda t: tuple(t.shape), a) == tree_map(lambda t: tuple(t.shape), b)
+
+
+def mesh_from_options(opt):
+    """The ray-parallel layout of --num_devices / --mesh / --num_hosts: None
+    for one device (--num_devices 0 or 1 without a process group, or a
+    group of one); else every rank of the process group, one a device, 1-D
+    or (dcn, ici)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_dev = getattr(opt, "num_devices", 0) or world
+    if world > 1 and n_dev != world:
+        raise ValueError(f"--num_devices {n_dev} in a process group of {world} ranks: one rank "
+                         f"a device, so give 0 or {world}")
+    if n_dev <= 1:
+        return None
+    if getattr(opt, "mesh", "dp") == "dcn,ici":
+        return make_hierarchical_mesh(n_hosts=getattr(opt, "num_hosts", 0) or 0)
+    return make_mesh(n_dev)
 
 
 class Trainer:
@@ -93,11 +127,13 @@ class Trainer:
         # True once the U-Net has been trained in this state (refine(), a
         # refine checkpoint or the refine overlay); see _resolve_use_refine
         self._refine_trained = False
+        self.mesh = mesh_from_options(opt)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
 
         self.ckpt = CheckpointManager(workspace, name=name, max_keep=max_keep_ckpt)
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
         self.metrics_path = os.path.join(workspace, f"metrics_{name}.jsonl")
-        self.writer = self._summary_writer()
+        self.writer = self._summary_writer() if self.is_main else None
 
         self.epoch = 0
         self.global_step = 0
@@ -119,9 +155,16 @@ class Trainer:
         self.log(f"[INFO] Trainer: {name} | {self.device} | "
                  f"{time.strftime('%Y-%m-%d_%H-%M-%S')} | {workspace}")
         self.log(f"[INFO] #parameters: {n_params}")
+        if self.mesh is not None:
+            self.log(f"[INFO] ray-parallel over {self.mesh.size} ranks, mesh "
+                     f"{dict(zip(self.mesh.axis_names, self.mesh.shape))}")
 
         if use_checkpoint != "scratch":
             self.load_checkpoint(use_checkpoint)
+        # rank 0's state on every rank: the seeded init and a restore of the
+        # same file agree already, this holds them to it
+        s = self.state
+        replicate(self.mesh, [s.params, s.opt_state.mu, s.opt_state.nu, s.ema.shadow])
 
     # ------------------------------------------------------------------- log
     def _summary_writer(self):
@@ -132,12 +175,16 @@ class Trainer:
         return tensorboardX.SummaryWriter(os.path.join(self.workspace, "run", self.name))
 
     def log(self, *args):
+        if not self.is_main:
+            return
         msg = " ".join(str(a) for a in args)
         print(msg, flush=True)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
 
     def log_metrics(self, record):
+        if not self.is_main:
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps({k: float(v) if hasattr(v, "item") else v
                                 for k, v in record.items()}) + "\n")
@@ -164,7 +211,7 @@ class Trainer:
                 W=dataset.W_lidar, fov_lidar=tuple(dataset.fov_lidar),
                 num_rays=self.opt.num_rays_lidar, num_steps=num_steps,
                 patch_size=patch_size, num_coarse=num_coarse, num_fine=num_fine,
-                generators=self._generators)
+                generators=self._generators, mesh=self.mesh)
         return self._steps[key]
 
     def _next_draws(self, step_fn):
@@ -211,7 +258,8 @@ class Trainer:
     def train(self, train_ds, valid_ds, refine_ds, max_epochs, run_refine=True):
         if self.loss_cfg.flow_loss and self.flow_cache is None:
             self.log("Preparing Point Clouds ...")
-            self.flow_cache = flow_cache_to_device(self._load_or_build_flow_cache(refine_ds),
+            cache = self._load_or_build_flow_cache(refine_ds) if self.is_main else None
+            self.flow_cache = flow_cache_to_device(broadcast_object(self.mesh, cache),
                                                    self.device)
 
         change = np.atleast_1d(self.opt.change_patch_size_lidar)[0] > 1
@@ -236,8 +284,9 @@ class Trainer:
             self.refine(refine_ds)
 
     def _profiler(self):
-        """A torch.profiler context for --profile's epoch 2, else None."""
-        if not (getattr(self.opt, "profile", False) and self.epoch == 2):
+        """A torch.profiler context for --profile's epoch 2 (rank 0's), else
+        None."""
+        if not (getattr(self.opt, "profile", False) and self.epoch == 2 and self.is_main):
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -334,7 +383,7 @@ class Trainer:
                             np.float32(frame["time"]), num_steps=self.opt.num_steps,
                             chunk=16384 if self._field_is_onehot() else 4096,
                             num_coarse=getattr(self.opt, "num_coarse", 0),
-                            num_fine=getattr(self.opt, "num_fine", 0))
+                            num_fine=getattr(self.opt, "num_fine", 0), mesh=self.mesh)
         image = out["image_lidar"].cpu().numpy()
         return (image[:, 0].reshape(H, W), image[:, 1].reshape(H, W),
                 out["depth_lidar"].cpu().numpy().reshape(H, W))
@@ -431,7 +480,7 @@ class Trainer:
 
     def _save_validation_panel(self, name, idx, raydrop, intensity, depth, mask):
         cv2 = _cv2()
-        if cv2 is None:
+        if cv2 is None or not self.is_main:
             return
         out_dir = os.path.join(self.workspace, "validation")
         os.makedirs(out_dir, exist_ok=True)
@@ -471,7 +520,8 @@ class Trainer:
             save_path = os.path.join(self.workspace, "results")
         if name is None:
             name = f"{self.name}_ep{self.epoch:04d}"
-        os.makedirs(save_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(save_path, exist_ok=True)
         self.log(f"==> Start Test, save results to {save_path}")
         self.use_refine = self._resolve_use_refine(refine)
         params = self._eval_params()
@@ -480,6 +530,8 @@ class Trainer:
 
         for i in range(len(dataset)):
             raydrop, intensity, depth = self._render_frame(params, dataset, i)
+            if not self.is_main:
+                continue
             if self.opt.raydrop_loss == "bce":
                 raydrop = 1 / (1 + np.exp(-raydrop))
             if self.use_refine:
@@ -552,8 +604,11 @@ class Trainer:
         params["unet"] = refine_unet(self.field.unet, params["unet"], inputs, gts,
                                      steps=1000, lr=1e-3, generator=self._generators[0],
                                      log_fn=self.log)
+        replicate(self.mesh, params["unet"])
         self._refine_trained = True
-        self.ckpt.save_refine({"params": params, "epoch": self.epoch}, self.epoch)
+        if self.is_main:
+            self.ckpt.save_refine({"params": params, "epoch": self.epoch}, self.epoch)
+        barrier(self.mesh)
 
     # ----------------------------------------------------------- checkpoints
     def _full_state_tree(self):
@@ -571,8 +626,14 @@ class Trainer:
         }
 
     def save_checkpoint(self, best=False):
+        """Rank 0 writes; every rank waits for it."""
+        self._save_checkpoint(best)
+        barrier(self.mesh)
+
+    def _save_checkpoint(self, best):
         if not best:
-            self.ckpt.save_epoch(self._full_state_tree(), self.epoch)
+            if self.is_main:
+                self.ckpt.save_epoch(self._full_state_tree(), self.epoch)
             return
         if not self.stats["results"]:
             self.log("[WARN] no evaluated results found, skip saving best checkpoint.")
@@ -588,8 +649,9 @@ class Trainer:
             self.log(f"[INFO] New best result: {self.stats['best_result']} --> {latest}")
             self.stats["best_result"] = latest
             # best stores the EMA weights (runner.py:998-1008)
-            self.ckpt.save_best({"params": ema_params(self.state.ema), "epoch": self.epoch,
-                                 "global_step": self.global_step})
+            if self.is_main:
+                self.ckpt.save_best({"params": ema_params(self.state.ema), "epoch": self.epoch,
+                                     "global_step": self.global_step})
 
     def _checked_params(self, path, params):
         if not _same_shapes(params, self.state.params):

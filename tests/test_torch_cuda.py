@@ -513,3 +513,80 @@ def test_plane_bilinear_vjp_launch_plans(dev, c, hw, variant, monkeypatch):
     for name, value in variant.items():
         monkeypatch.setattr(po, name, value)
     _check_vjp(dev, c, hw, 9001, "rays" if hw[0] == 8 else "uniform", seed=80)
+
+
+# Ray parallelism on the card: two gloo ranks on card 0 (NCCL takes one card
+# a rank), a tiny field with float32 MLPs, one step at patch 1 and one at
+# patch (2, 8) with the flow loss; each rank's reduced loss and gradients
+# against the single-process step on the same draws (rank 0 computes it),
+# and the ranks' post-step parameters bitwise equal.
+_TINY = dict(base_resolution=8, max_resolution=32, log2_hashmap_size=8, n_levels_hash=2,
+             n_features_per_level_hash=8, hash_size_dynamic=(8, 7, 7), n_levels_plane=2,
+             min_resolution=8, time_resolution=4, num_frames=6, flow_n_levels=2,
+             flow_n_features=8, flow_log2_hashmap_size=8, flow_base_resolution=8,
+             flow_max_resolution=16, plane_hash_scales=1, plane_hash_log2=7,
+             near_lidar=0.01, far_lidar=0.81)
+
+
+def _gloo_rank(rank, root):
+    import functools
+    import os
+
+    import torch.distributed as dist
+
+    from lidar4d_tpu_torch.interop import tree_leaves
+    from lidar4d_tpu_torch.models import flow_field, lidar4d
+    from lidar4d_tpu_torch.ops.mlp import apply_mlp
+    from lidar4d_tpu_torch.parallel.mesh import make_mesh
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    lidar4d.apply_mlp = flow_field.apply_mlp = functools.partial(apply_mlp, dtype=torch.float32)
+    dev = torch.device("cuda", 0)
+    field = lidar4d.LiDAR4DField(lidar4d.LiDAR4DConfig(**_TINY), device=dev)
+    frame = {"pose": torch.eye(4, device=dev), "time": 0.4,
+             "image": _rand(dev, 16, 64, 3, lo=0.1, hi=0.7, seed=90)}
+    cache = {"points": _rand(dev, 6, 500, 3, lo=-0.5, hi=0.5, seed=91),
+             "ground": _rand(dev, 6, 100, 3, lo=-0.5, hi=0.5, seed=92),
+             "mask": torch.ones(6, 500, device=dev), "gmask": torch.ones(6, 100, device=dev),
+             "valid": torch.ones(6, device=dev)}
+    out = {}
+    for patch in (1, (2, 8)):
+        state, opt = init_train_state(field, lr=1e-2, iters=100)
+        kw = dict(H=16, W=64, fov_lidar=(2.0, 26.9), num_rays=64, patch_size=patch,
+                  num_coarse=8, num_fine=16)
+        loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=0.01, num_frames=6,
+                              iters=100)
+        sharded = make_train_step(field, opt, loss_cfg, mesh=make_mesh(2), **kw)
+        draws = sharded.draw()
+        ref = make_train_step(field, opt, loss_cfg, **kw).grads(state.params, frame, cache,
+                                                                draws, 0) if rank == 0 else None
+        grads, metrics = sharded.grads(state.params, frame, cache, draws, 0)
+        opt.step(state.params, grads, state.opt_state)
+        out[str(patch)] = {
+            "got": ({k: float(v) for k, v in metrics.items()},
+                    [None if g is None else g.cpu() for g in grads]),
+            "ref": None if ref is None else ({k: float(v) for k, v in ref[1].items()},
+                                             [None if g is None else g.cpu() for g in ref[0]]),
+            "params": [p.detach().cpu() for p in tree_leaves(state.params)]}
+    dist.barrier()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def test_two_gloo_ranks_step_matches_one_process(dev, tmp_path):
+    from lidar4d_tpu_torch.parallel.launch import join_ranks, start_ranks
+
+    procs = start_ranks(_gloo_rank, (str(tmp_path),), 2, f"file://{tmp_path}/rendezvous", "gloo")
+    join_ranks(procs, 180)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for patch, r0 in ranks[0].items():
+        (m, g), (m_ref, g_ref) = r0["got"], r0["ref"]
+        assert ("grad_loss" in m) == (patch != "1")
+        for k in m_ref:
+            assert abs(m[k] - m_ref[k]) <= 1e-6 * abs(m_ref[k]), (patch, k)
+        for a, b in zip(g, g_ref):
+            assert (a is None) == (b is None)
+            if b is not None and b.any():
+                assert _rel(a, b) <= GRAD_RTOL
+        for a, b in zip(r0["params"], ranks[1][patch]["params"]):
+            assert torch.equal(a, b)

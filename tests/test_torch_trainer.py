@@ -9,6 +9,7 @@ scene; every comparison here is within the port, so results are exact.
 """
 
 import copy
+import functools
 import hashlib
 import json
 import os
@@ -23,12 +24,15 @@ from lidar4d_tpu_torch.cli import main_lidar4d
 from lidar4d_tpu_torch.cli.config import (
     build_loss_config,
     build_model_config,
-    check_single_device,
     get_arg_parser,
+    ranks_to_start,
 )
 from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
 from lidar4d_tpu_torch.data.synthetic import generate_synthetic_sequence
+from lidar4d_tpu_torch.models import flow_field as flow_field_mod
+from lidar4d_tpu_torch.models import lidar4d as lidar4d_mod
 from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+from lidar4d_tpu_torch.ops import mlp
 from lidar4d_tpu_torch.train import trainer as trainer_mod
 from lidar4d_tpu_torch.train.checkpoints import CheckpointManager
 from lidar4d_tpu_torch.train.trainer import Trainer
@@ -283,13 +287,26 @@ def test_param_finiteness_sentinel(scene, tmp_path):
 
 
 def test_single_device_only(scene):
+    """The CLI's device count: --num_devices 0 and 1 mean one device, N
+    more ranks; on cuda (NCCL, one card a rank) never more ranks than cards;
+    without a process group the Trainer itself takes one device, and more
+    needs one."""
     opt = copy.copy(scene["opt"])
     for n in (0, 1):
         opt.num_devices = n
-        check_single_device(opt)
+        assert ranks_to_start(opt) == 1
+        assert trainer_mod.mesh_from_options(opt) is None
     opt.num_devices = 2
-    with pytest.raises(NotImplementedError, match="A8"):
-        check_single_device(opt)
+    assert ranks_to_start(opt) == 2
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        trainer_mod.mesh_from_options(opt)
+    opt.device = "cuda"
+    opt.num_devices = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="one card a rank"):
+        ranks_to_start(opt)
+    opt.device = "cuda:0"
+    with pytest.raises(ValueError, match="its own card"):
+        ranks_to_start(opt)
 
 
 # -------------------------------------------------------------------- CLI
@@ -329,14 +346,57 @@ def test_cli_refuses_what_it_cannot_run(scene, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main_lidar4d.main(argv + ["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        main_lidar4d.main(argv + ["--num_devices", "4"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        main_lidar4d.main(argv + ["--mesh", "dcn,ici"])
     with pytest.raises(SystemExit):      # a flag that would change nothing here
         main_lidar4d.main(argv + ["--fp16", "False"])
     with pytest.raises(SystemExit, match="nuscenes"):
         main_lidar4d.main(argv + ["--dataloader", "nuscenes"])
+
+
+def _float32_mlps():
+    f32 = functools.partial(mlp.apply_mlp, dtype=torch.float32)
+    lidar4d_mod.apply_mlp = flow_field_mod.apply_mlp = f32
+
+
+def _float32_rank_main(rank, argv):
+    """The CLI's spawned ranks, with float32 MLPs."""
+    _float32_mlps()
+    main_lidar4d._rank_main(rank, argv)
+
+
+def test_cli_two_ranks_equal_one_device(scene, tmp_path, monkeypatch):
+    """--num_devices 2 --device cpu: main starts a second rank and returns
+    rank 0's Trainer after one epoch (the uniform warm-up's 4 steps, the
+    flow loss on), whose parameters are a one-device run's with the same
+    seed; rank 0 alone wrote the checkpoint and the logs. Both runs use
+    float32 MLPs (in the spawned rank too): a bfloat16 weight gradient summed
+    from two halves rounds differently from one over the whole batch."""
+    monkeypatch.setattr(lidar4d_mod, "apply_mlp", functools.partial(mlp.apply_mlp,
+                                                                   dtype=torch.float32))
+    monkeypatch.setattr(flow_field_mod, "apply_mlp", lidar4d_mod.apply_mlp)
+    monkeypatch.setattr(main_lidar4d, "_rank_main", _float32_rank_main)
+    argv = scene["argv"] + ["--train_only", "--max_epochs", "1"]
+    one = main_lidar4d.main(argv + ["--workspace", str(tmp_path / "one")])
+    two = main_lidar4d.main(argv + ["--workspace", str(tmp_path / "two"), "--num_devices", "2"])
+    assert one.mesh is None and two.mesh.size == 2 and two.mesh.rank == 0
+    assert two.global_step == one.global_step == 4
+    for a, b in zip(_leaves(two.state.params), _leaves(one.state.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    assert sorted(os.listdir(two.ckpt.ckpt_dir)) == ["lidar4d_ep0001"]
+    logs = open(two.log_path).read()
+    assert logs.count("==> Epoch 1") == 1 and "ray-parallel over 2 ranks" in logs
+    # evaluate and test the checkpoint over two ranks: the frames rendered
+    # over both, rank 0's outputs equal to one process's
+    ws_one, ws_two = str(tmp_path / "one"), str(tmp_path / "two")
+    argv = scene["argv"] + ["--ckpt", "latest", "--test_eval"]
+    main_lidar4d.main(argv + ["--workspace", ws_one])
+    main_lidar4d.main(argv + ["--workspace", ws_two, "--num_devices", "2"])
+    evals = [[json.loads(line) for line in open(os.path.join(ws, "metrics_lidar4d.jsonl"))
+              if "valid_loss" in line] for ws in (ws_one, ws_two)]
+    assert len(evals[0]) == len(evals[1]) == 1
+    np.testing.assert_allclose(evals[1][0]["valid_loss"], evals[0][0]["valid_loss"], rtol=1e-5)
+    outputs = sorted(f for f in os.listdir(os.path.join(ws_two, "results")) if f.endswith(".npy"))
+    assert outputs == sorted(f for f in os.listdir(os.path.join(ws_one, "results"))
+                             if f.endswith(".npy")) and len(outputs) == 2
 
 
 def test_cli_writes_synthetic_scene_on_demand(scene, tmp_path):
