@@ -102,6 +102,22 @@ Phases (each prints a start line):
            by the port's default (cKDTree on every core) and by the native
            kNN, with seconds a frame and the points whose keeping differs
            from the one-worker cKDTree's. A JSON line {"preprocess": {...}}.
+  reference the paper's configuration, configs/kitti360_4950.txt at the CLI
+           defaults (2^19-row hash tables, dense 32^2..256^2 planes, 768
+           uniform samples, 53.1 M parameters), off every flagship route:
+           one step (1,024 rays, the flow loss on whole clouds) on O(0.1-1)
+           parameters with every kernel call and hash-encode route
+           recorded, each call held against its plain version on its own
+           inputs (a backward kernel against the plain version with tables
+           and cotangents in float64) and timed beside its bound; 1 warm-up
+           and 3 timed steps with a profiled one; one card step against the
+           CPU's (256 rays, float32 MLPs); one 66x1030 frame through
+           Simulator.render in the field's 4,096-ray chunks, and its first
+           chunk against the plain versions; then the training CLI (one
+           epoch of 41 steps, one evaluation, no refine) and the simulation
+           CLI (--kitti2nus, a fresh process) on the scene of the trainer
+           phase, each kernel's launches checked per step and per chunk. A
+           JSON line {"reference": {...}}.
 
 The kernels line (the line before the device's name) is a JSON object with
 each kernel's numbers. For the six kernels of the train step they are taken
@@ -447,28 +463,44 @@ def finish(summary):
     return summary
 
 
-def check_case(case, summary, main, iters, plain_iters):
+def max_rel(got, want):
+    """Largest gap over the outputs, each of its reference's largest magnitude."""
+    return max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def check_case(case, summary, main, iters, plain_iters, exact=None):
     """Hold one kernel case against its plain version (each output within
     KERNEL_RTOL, GRAD_RTOL for a backward kernel, of the plain output's
     largest magnitude; plane_bilinear_vjp's point gradient zero exactly where
     the plain version's is, the tent's subgradient), time kernel, plain
     version and library call, and add the case to `summary` (times and bound
-    only when `main`)."""
+    only when `main`). With `exact`, the plain version with tables and
+    cotangents in float64, the outputs are held against that instead, and the float32
+    plain version's own gap to it is printed beside: an output that sums
+    tens of thousands of float32 terms comes out of any two orders of
+    addition about 1e-4 apart. Returns the case's numbers."""
     name, label, run, plain, library, nb, flops = case
     rtol = GRAD_RTOL if name.endswith(("_bwd", "_vjp")) else KERNEL_RTOL
     got, want = run(), plain()
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    plain_rel = None
+    if exact is not None:
+        ref = exact()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        plain_rel = max_rel(want, ref)
+        want = ref
     torch.cuda.synchronize()
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    rel = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-              for g, w in zip(got, want))
+    rel = max_rel(got, want)
     zeros = name != "plane_bilinear_vjp" or torch.equal(got[-1] == 0, want[-1] == 0)
     del got, want
     ms = cuda_ms(run, iters)
     plain_ms = cuda_ms(plain, plain_iters)
     lib_ms = cuda_ms(library, iters) if library is not None else None
     b_ms, b_by = bound_ms(nb, flops)
-    print(f"  {name:18s} {label:55s} max_abs {err:.3e} max_rel {rel:.3e} "
+    oracle = "" if plain_rel is None else f" (float64; float32 plain {plain_rel:.3e})"
+    print(f"  {name:18s} {label:55s} max_abs {err:.3e} max_rel {rel:.3e}{oracle} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
           f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
@@ -477,6 +509,9 @@ def check_case(case, summary, main, iters, plain_iters):
     if not zeros:
         raise AssertionError(f"{name} {label}: the point gradient's zeros differ from the "
                              "plain version's")
+    row = {"kernel": name, "call": label, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "plain_float32_rel_err": plain_rel}
     s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                       bytes=0, flops=0, library_ms=None))
     s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -487,6 +522,7 @@ def check_case(case, summary, main, iters, plain_iters):
         s["flops"] += flops
         if lib_ms is not None:
             s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
+    return row
 
 
 def backward_cases(field, params, gen, pts, classic=False):
@@ -757,13 +793,23 @@ def make_scene(root):
     datasets, and the flow cache for the frames the steps touch and their
     +-2 neighbours (every other frame valid = 0). Returns (train dataset,
     cache, scale, offset)."""
-    from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
     from lidar4d_tpu_torch.data.synthetic import generate_synthetic_sequence
-    from lidar4d_tpu_torch.train.flow_cache import build_flow_cache
 
     t0 = time.perf_counter()
     scale, offset = generate_synthetic_sequence(root, **SCENE)
     t_gen = time.perf_counter() - t0
+    print(f"  scene {SCENE}: scale {scale:.6g}, written in {t_gen:.1f} s", flush=True)
+    ds, cache = scene_steps(root, scale, offset, FLOW_MAX_POINTS)
+    return ds, cache, scale, offset
+
+
+def scene_steps(root, scale, offset, max_points):
+    """The train dataset of the synthetic scene under `root` and the flow
+    cache (at most max_points a cloud; 0: whole clouds) for the frames the
+    steps touch and their +-2 neighbours (every other frame valid = 0)."""
+    from lidar4d_tpu_torch.data.kitti360 import KITTI360Dataset
+    from lidar4d_tpu_torch.train.flow_cache import build_flow_cache
+
     kw = dict(root_path=root, sequence_id=SCENE["sequence_id"], scale=scale, offset=offset)
     ds = KITTI360Dataset(split="train", num_rays_lidar=TRAIN_RAYS, **kw)
     refine = KITTI360Dataset(split="refine", **kw)
@@ -772,14 +818,13 @@ def make_scene(root):
     frames = {f + d for f in touched for d in range(-2, 3) if 0 <= f + d < n_frames}
     random.seed(SEED)
     t0 = time.perf_counter()
-    cache = build_flow_cache(refine, scale, n_frames, max_points=FLOW_MAX_POINTS,
-                             seed=SEED, frames=frames)
-    t_cache = time.perf_counter() - t0
+    cache = build_flow_cache(refine, scale, n_frames, max_points=max_points, seed=SEED,
+                             frames=frames)
     built = sorted(int(i) for i in np.flatnonzero(cache["valid"]))
-    print(f"  scene {SCENE}: scale {scale:.6g}, written in {t_gen:.1f} s; flow cache for "
-          f"frames {built} in {t_cache:.1f} s: points {cache['points'].shape}, "
+    print(f"  flow cache (at most {max_points or 'all'} points a cloud) for frames {built} in "
+          f"{time.perf_counter() - t0:.1f} s: points {cache['points'].shape}, "
           f"ground {cache['ground'].shape}", flush=True)
-    return ds, cache, scale, offset
+    return ds, cache
 
 
 def train_field(field, scale):
@@ -830,26 +875,32 @@ def check_train_kernels(field, params, ds, cache, opt, dev, classic=False):
     return finish(summary)
 
 
-def launches_per_step(field, classic=False):
-    """Kernel launches of one flagship train step, from the field's shape:
-    per density call (two per step) the static hash, the hashed static
-    planes (one launch for the three), the flow grid and the dynamic hash
-    planes on hash_grid_* (fact: one launch for the three variants of a
-    plane; classic: one per variant forward, variant 0 alone backward), each
-    dense static scale on plane_bilinear_*, each scale's time planes on
-    plane_linear_*; plus the flow loss's two flow-grid encodes, and no
-    plane_bilinear_vjp."""
+def launches_per_step(field, classic=False, density_calls=2):
+    """Kernel launches of one train step, from the field's shape: per
+    density call (two per hierarchical step, one per uniform step) the
+    static hash, the hashed static planes (one launch for the three), the
+    flow grid and the dynamic hash planes on hash_grid_* (fused: one launch
+    for the three variants of a plane; classic, or a dynamic spec the folded
+    encode does not take: one per variant forward, variant 0 alone
+    backward), each dense static scale on plane_bilinear_*, each scale's
+    time planes on plane_linear_*; plus the flow loss's two flow-grid
+    encodes, and no plane_bilinear_vjp."""
+    from lidar4d_tpu_torch.ops.hash_onehot import folded_eligible
+
+    enc = field.hash_encoder
+    unfused = classic or not all(folded_eligible(enc.dynamic_spec(p), enc.num_basis)
+                                 for p in range(3))
     planes = field.planes_encoder
     n_scales = len(planes.multiscale_res)
     hashed = sum(planes._static_hashed(si, planes._scale_reso(sc))
                  for si, sc in enumerate(planes.multiscale_res))
-    per_call = {"hash_grid_fwd": 2 + hashed + (9 if classic else 3),
+    per_call = {"hash_grid_fwd": 2 + hashed + (9 if unfused else 3),
                 "hash_grid_bwd": 2 + hashed + 3,
                 "plane_bilinear_fwd": n_scales - hashed, "plane_bilinear_bwd": n_scales - hashed,
                 "plane_linear_fwd": n_scales, "plane_linear_bwd": n_scales,
                 "plane_bilinear_vjp": 0}
     extra = {"hash_grid_fwd": 2, "hash_grid_bwd": 2}
-    return {k: 2 * v + extra.get(k, 0) for k, v in per_call.items()}
+    return {k: density_calls * v + extra.get(k, 0) for k, v in per_call.items()}
 
 
 def leaf_groups(params):
@@ -981,7 +1032,8 @@ def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
 
 
 def profile_step(step, state, frame, cache):
-    """Device time by kernel over one train step (torch.profiler)."""
+    """Device time by kernel over one train step (torch.profiler); returns
+    its wall ms, device busy ms, idle share and device ms by group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,20 +1062,24 @@ def profile_step(step, state, frame, cache):
                      else "cat" if "cat" in low
                      else "other")
         groups[group] += ms
+    idle = max(0.0, 1 - busy_ms / wall_ms)
     print(f"  profile 1 train step: wall {wall_ms:.1f} ms (profiler on), device busy "
-          f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+          f"{busy_ms:.1f} ms, idle share {idle:.3f}", flush=True)
     print("  device ms by group " + json.dumps({k: round(v, 3) for k, v in groups.items()}),
           flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle, "device_ms": groups}
 
 
-def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classic=False):
-    """warmup + timed flagship train steps from `params` (updated in place),
-    bfloat16 MLPs, the flow loss on, each step's kernel launches checked
-    against `launches_per_step`; then one step under the profiler. Returns
-    (launch counts of all steps, mean ms/step of the timed steps, their
-    losses)."""
+def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classic=False,
+          what="flagship"):
+    """warmup + timed train steps of TRAIN_RAYS rays with opt's sampling
+    from `params` (updated in place), bfloat16 MLPs, the flow loss on, each
+    step's kernel launches checked against `launches_per_step`; then one
+    step under the profiler. Returns a dict: launch counts of all steps,
+    mean ms/step of the timed steps, their losses, the peak memory and the
+    profiled step's numbers."""
     from lidar4d_tpu_torch.ops import _cuda
     from lidar4d_tpu_torch.train.losses import LossConfig
     from lidar4d_tpu_torch.train.train_step import (
@@ -1033,8 +1089,8 @@ def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classi
                           num_frames=field.cfg.num_frames, iters=ITERS)
     state, optim = init_train_state(field, lr=LR, iters=ITERS, params=params)
     step = make_train_step(field, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV,
-                           num_rays=TRAIN_RAYS, patch_size=1, num_coarse=opt.num_coarse,
-                           num_fine=opt.num_fine, seed=SEED)
+                           num_rays=TRAIN_RAYS, patch_size=1, num_steps=opt.num_steps,
+                           num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
     fc = flow_cache_to_device(cache, dev)
     frames = [{k: torch.as_tensor(v, device=dev) if k != "time" else v
                for k, v in ds.frame(i).items()} for i in range(STEP_FRAMES)]
@@ -1056,11 +1112,11 @@ def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classi
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"step {i}: a loss is not finite: {m}")
     step_s = float(np.mean(times[warmup:]))
-    print(f"  flagship train step{' (classic)' if classic else ''}: {step_s * 1e3:.2f} ms/step "
+    print(f"  {what} train step{' (classic)' if classic else ''}: {step_s * 1e3:.2f} ms/step "
           f"(mean of {timed}, min {min(times[warmup:]) * 1e3:.2f}), "
           f"{TRAIN_RAYS / step_s:.1f} train rays/s per GPU, peak memory {peak:.2f} GiB",
           flush=True)
-    want = launches_per_step(field, classic)
+    want = launches_per_step(field, classic, density_calls=2 if opt.num_coarse else 1)
     n_steps = warmup + timed
     print(f"  launches per step {json.dumps({k: v / n_steps for k, v in launches.items()})} "
           f"(expected {json.dumps(want)})", flush=True)
@@ -1068,32 +1124,46 @@ def train(field, params, ds, cache, opt, dev, warmup=WARMUP, timed=TIMED, classi
         if launches[name] != per_step * n_steps:
             raise AssertionError(f"{name}: {launches[name]} launches in {n_steps} steps, "
                                  f"expected {per_step} per step")
-    profile_step(step, state, frames[0], fc)
-    return launches, step_s * 1e3, losses[warmup:]
+    profile = profile_step(step, state, frames[0], fc)
+    return {"launches": launches, "ms_per_step": step_s * 1e3, "losses": losses[warmup:],
+            "peak_gib": peak, "profile": profile}
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Every kernel wrapper swapped for its plain PyTorch version, on the
-    card's tensors too: the autograd.Functions then run the plain halves."""
+# each kernel wrapper's plain PyTorch version, beside it in its module
+PLAIN_VERSIONS = {"hash_grid_fwd": "hash_grid_fwd_plain", "hash_grid_bwd": "hash_grid_bwd_plain",
+                  "plane_bilinear_fwd": "plane_bilinear_plain",
+                  "plane_bilinear_bwd": "plane_bilinear_bwd_plain",
+                  "plane_bilinear_vjp": "plane_bilinear_vjp_plain",
+                  "plane_linear_fwd": "plane_linear_plain",
+                  "plane_linear_bwd": "plane_linear_bwd_plain"}
+
+
+def kernel_module(name):
+    """The module whose global `name` the autograd.Functions call."""
     from lidar4d_tpu_torch.ops import hash_onehot as ho
     from lidar4d_tpu_torch.ops import plane_onehot as po
 
-    swaps = {(ho, "hash_grid_fwd"): ho.hash_grid_fwd_plain,
-             (ho, "hash_grid_bwd"): ho.hash_grid_bwd_plain,
-             (po, "plane_bilinear_fwd"): po.plane_bilinear_plain,
-             (po, "plane_bilinear_bwd"): po.plane_bilinear_bwd_plain,
-             (po, "plane_bilinear_vjp"): po.plane_bilinear_vjp_plain,
-             (po, "plane_linear_fwd"): po.plane_linear_plain,
-             (po, "plane_linear_bwd"): po.plane_linear_bwd_plain}
-    saved = {key: getattr(*key) for key in swaps}
-    for (mod, name), fn in swaps.items():
-        setattr(mod, name, fn)
+    return ho if name.startswith("hash_") else po
+
+
+@contextlib.contextmanager
+def swapped_kernels(make):
+    """Every kernel wrapper `name` swapped for make(name, wrapper), restored
+    after."""
+    saved = {name: getattr(kernel_module(name), name) for name in PLAIN_VERSIONS}
+    for name, fn in saved.items():
+        setattr(kernel_module(name), name, make(name, fn))
     try:
         yield
     finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
+        for name, fn in saved.items():
+            setattr(kernel_module(name), name, fn)
+
+
+def plain_kernels():
+    """Every kernel wrapper swapped for its plain PyTorch version, on the
+    card's tensors too: the autograd.Functions then run the plain halves."""
+    return swapped_kernels(lambda name, _: getattr(kernel_module(name), PLAIN_VERSIONS[name]))
 
 
 def encoder_samples(field, ds, opt, dev, gen):
@@ -1223,9 +1293,9 @@ def check_classic(field, params, ds, cache, opt, dev):
     compare_steps("classic vs fact", field, signal, classic, fact, CLASSIC_STEP_RTOL,
                   CLASSIC_GRAD_RTOL, post_step=False)
     with onehot_variant("classic"):
-        launches, ms, losses = train(field, field.init(seed=SEED), ds, cache, opt, dev,
-                                     CLASSIC_WARMUP, CLASSIC_TIMED, classic=True)
-    return summary, launches, ms, losses
+        run = train(field, field.init(seed=SEED), ds, cache, opt, dev, CLASSIC_WARMUP,
+                    CLASSIC_TIMED, classic=True)
+    return summary, run["launches"], run["ms_per_step"], run["losses"]
 
 
 def host_run(grads, metrics):
@@ -1755,13 +1825,14 @@ def check_launches(what, launches):
             raise AssertionError(f"{what}: kernel {name} launched {count} times")
 
 
-def check_clouds(what, clouds, n_frames, H, W):
+def check_clouds(what, clouds, n_frames, H, W, min_points=1):
     if len(clouds) != n_frames:
         raise AssertionError(f"{what}: {len(clouds)} point clouds, not {n_frames}")
     for i, c in enumerate(clouds):
-        if c.ndim != 2 or c.shape[1] != 4 or not 0 < len(c) <= H * W or not np.isfinite(c).all():
-            raise AssertionError(f"{what}: frame {i} is not a finite [M, 4] cloud, M <= {H * W}: "
-                                 f"{c.shape}")
+        if c.ndim != 2 or c.shape[1] != 4 or not min_points <= len(c) <= H * W \
+                or not np.isfinite(c).all():
+            raise AssertionError(f"{what}: frame {i} is not a finite [M, 4] cloud, "
+                                 f"{min_points} <= M <= {H * W}: {c.shape}")
 
 
 def read_clouds(ws):
@@ -2007,6 +2078,444 @@ def check_preprocess(root, scale, offset):
     return out
 
 
+# reference phase: configs/kitti360_4950.txt at the CLI defaults (the paper's
+# configuration and the default of both CLIs: 2^19-row hash tables, dense
+# 32^2..256^2 static planes, 768 uniform samples), on the synthetic scene
+REFERENCE_CONFIG = "configs/kitti360_4950.txt"
+REFERENCE_WARMUP, REFERENCE_TIMED = 1, 3
+REFERENCE_FRAME_T = 0.3
+# a 4,096-ray chunk of the render, card kernels vs card plain versions, both
+# with float32 MLPs: each output within this of the plain output's largest
+# magnitude (the kernels' forward gaps are <= 1e-6)
+REFERENCE_CHUNK_RTOL = 1e-5
+# the port's hash-encode routes, by the module global its dispatch calls
+ENCODE_ROUTES = (("hash_onehot", "hash_encode_onehot_fact", "factorized"),
+                 ("hash_onehot", "hash_encode_onehot", "classic"),
+                 ("hash_onehot", "hash_encode_folded", "folded"),
+                 ("hash_field", "hash_encode_fact_multi_folded", "folded, variants fused"))
+
+
+@contextlib.contextmanager
+def recording_kernel_calls(calls):
+    """Every kernel wrapper appends (name, arguments, keyword arguments) to
+    `calls`, tensors cloned, and runs."""
+    def keep(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
+
+    def make(name, fn):
+        def run(*args, **kwargs):
+            calls.append((name, [keep(a) for a in args], {k: keep(v) for k, v in kwargs.items()}))
+            return fn(*args, **kwargs)
+        return run
+
+    with swapped_kernels(make):
+        yield calls
+
+
+@contextlib.contextmanager
+def spying_encode_routes(routes):
+    """Each hash-encode route of the port's dispatch (ENCODE_ROUTES)
+    appends (route, spec) to `routes` and runs."""
+    from lidar4d_tpu_torch.models import hash_field
+    from lidar4d_tpu_torch.ops import hash_onehot
+
+    mods = {"hash_onehot": hash_onehot, "hash_field": hash_field}
+    saved = [(mods[m], name, getattr(mods[m], name), route) for m, name, route in ENCODE_ROUTES]
+    for mod, name, fn, route in saved:
+        def spy(spec, *args, _fn=fn, _route=route):
+            routes.append((_route, spec))
+            return _fn(spec, *args)
+        setattr(mod, name, spy)
+    try:
+        yield routes
+    finally:
+        for mod, name, fn, _ in saved:
+            setattr(mod, name, fn)
+
+
+def encoder_names(field):
+    """{spec: encoder name} of the field's hash encodes and of their folded
+    specs."""
+    from lidar4d_tpu_torch.ops.hash_onehot import _folded_spec
+
+    enc, flow = field.hash_encoder, field.flow_net
+    named = [("static hash", enc.static_spec, enc.num_basis)]
+    named += [(f"dynamic hash {xy}", enc.dynamic_spec(p), enc.num_basis)
+              for p, xy in enumerate(("xy", "xz", "yz"))]
+    named.append(("flow grid", flow.grid_spec, flow.num_basis))
+    names = {}
+    for name, spec, basis in named:
+        names.setdefault(spec, []).append(name)
+        if spec.n_features % basis == 0:
+            names.setdefault(_folded_spec(spec, basis), []).append(f"{name}, folded")
+    return {spec: " / ".join(dict.fromkeys(v)) for spec, v in names.items()}
+
+
+def call_label(names, name, args):
+    """A recorded kernel call in words: the encoder or planes and the shapes."""
+    if name.startswith("hash_"):
+        spec, xs = args[0], args[2] if name == "hash_grid_fwd" else args[1]
+        return (f"{names.get(spec, 'hash')}: {spec.n_dims}D L={spec.n_levels} "
+                f"F={spec.n_features} rows {max(spec.table_sizes)} V={xs.shape[0]} "
+                f"N={xs.shape[1]}")
+    if name == "plane_bilinear_bwd":
+        return f"dense static planes {tuple(args[0].shape[:1])}x{tuple(args[2])} " \
+               f"C={args[1].shape[1]} N={args[0].shape[1]}"
+    grid, pts = args[0], args[1]
+    return f"{'time' if name.startswith('plane_linear') else 'dense static'} planes " \
+           f"{tuple(grid.shape)} N={pts.shape[1]}"
+
+
+def call_flops(name, args, kwargs, outs):
+    """Operations of one kernel call, counted as the earlier phases count
+    them."""
+    if name.startswith("hash_"):
+        spec, xs = args[0], args[2] if name == "hash_grid_fwd" else args[1]
+        return 2 * xs.shape[0] * xs.shape[1] * spec.n_levels * (1 << spec.n_dims) \
+            * spec.n_features
+    if name == "plane_bilinear_fwd":
+        return 2 * 4 * outs[0].numel()
+    if name == "plane_bilinear_bwd":
+        return 2 * 4 * args[1].numel()
+    if name == "plane_linear_fwd":
+        return 2 * 2 * outs[0].numel()
+    if name == "plane_linear_bwd":
+        grid, cot = args[0], args[2]
+        lead = args[3] if len(args) > 3 else kwargs.get("lead", 0)
+        return 4 * cot.numel() + 3 * cot.numel() * (grid.shape[0] - lead) // grid.shape[0]
+    return 24 * args[2].numel()                                      # plane_bilinear_vjp
+
+
+# the coordinates' place among each backward kernel's arguments
+COORD_ARG = {"hash_grid_bwd": 1, "plane_bilinear_bwd": 0, "plane_bilinear_vjp": 1,
+             "plane_linear_bwd": 1}
+
+
+def recorded_cases(field, calls):
+    """(check_case case, exact) of each recorded kernel call, on its own
+    arguments: the kernel against its plain version, a backward kernel
+    against its plain version with tables and cotangents in float64 (exact;
+    the coordinates stay float32, so that every point keeps the kernel's
+    cell, and with it a coordinate gradient that is a slope of that cell);
+    bytes = every input read once and every output written once (with the
+    hash kernels' level table)."""
+    from lidar4d_tpu_torch.ops import hash_onehot as ho
+
+    names = encoder_names(field)
+    for name, args, kwargs in calls:
+        mod = kernel_module(name)
+        run = functools.partial(getattr(mod, name), *args, **kwargs)
+        plain = functools.partial(getattr(mod, PLAIN_VERSIONS[name]), *args, **kwargs)
+        outs = run()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        tensors = [a for a in (*args, *kwargs.values()) if torch.is_tensor(a)]
+        if name.startswith("hash_"):
+            tensors.append(ho._level_table(args[0], outs[0].device))
+        case = (name, call_label(names, name, args), run, plain, None,
+                nbytes(*tensors, *outs), call_flops(name, args, kwargs, outs))
+        del outs
+        exact = None
+        if name in COORD_ARG:
+            wide = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+                    and i != COORD_ARG[name] else a for i, a in enumerate(args)]
+            exact = functools.partial(getattr(mod, PLAIN_VERSIONS[name]), *wide, **kwargs)
+        yield case, exact
+
+
+def per_density_call(field):
+    """Kernel launches of one density call of `field` (no flow loss)."""
+    return {k: v - launches_per_step(field, density_calls=0)[k]
+            for k, v in launches_per_step(field, density_calls=1).items()}
+
+
+def check_reference_kernels(field, signal_t, ds, cache, opt, dev):
+    """One reference step (TRAIN_RAYS rays, opt's uniform samples, the flow
+    loss) on O(0.1-1) parameters with every kernel call and every hash-encode
+    route recorded; then each recorded call, forward and backward, held
+    against its plain version on its own inputs and timed beside its bound.
+    Returns (routes by encoder, the calls' rows, the per-kernel sums)."""
+    from lidar4d_tpu_torch.train.losses import LossConfig
+    from lidar4d_tpu_torch.train.train_step import (
+        flow_cache_to_device, init_train_state, make_train_step)
+
+    loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
+                          num_frames=field.cfg.num_frames, iters=ITERS)
+    state, optim = init_train_state(field, lr=LR, iters=ITERS, params=signal_t)
+    step = make_train_step(field, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV,
+                           num_rays=TRAIN_RAYS, patch_size=1, num_steps=opt.num_steps,
+                           num_coarse=opt.num_coarse, num_fine=opt.num_fine, seed=SEED)
+    calls, routes = [], []
+    with recording_kernel_calls(calls), spying_encode_routes(routes):
+        step.grads(state.params, ds.frame(0), flow_cache_to_device(cache, dev), step.draw(), 0)
+    del state
+    names, basis = encoder_names(field), field.hash_encoder.num_basis
+    by_encoder = {}
+    for route, spec in routes:
+        f = f"F'={spec.n_features // basis}" if route.startswith("folded") \
+            else f"F={spec.n_features}"
+        key = f"{route} at {f}, {max(spec.table_sizes)} rows a level"
+        enc = by_encoder.setdefault(names.get(spec, str(spec)), {})
+        enc[key] = enc.get(key, 0) + 1
+    print("  hash-encode routes of one reference step (calls): " + json.dumps(by_encoder),
+          flush=True)
+    counts = {name: sum(1 for c in calls if c[0] == name) for name in PLAIN_VERSIONS}
+    want = launches_per_step(field, density_calls=1)
+    print(f"  kernel calls of the step {json.dumps(counts)} (expected {json.dumps(want)})",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"the reference step's kernel calls {counts}, expected {want}")
+    if any(route.startswith(("factorized", "folded, variants")) for route, _ in routes):
+        raise AssertionError("a reference encoder took a flagship route: "
+                             + json.dumps(by_encoder))
+    summary, rows = {}, []
+    with torch.no_grad():
+        for case, exact in recorded_cases(field, calls):
+            rows.append(check_case(case, summary, True, 5, 1, exact))
+    del calls
+    torch.cuda.empty_cache()
+    return by_encoder, rows, finish(summary)
+
+
+def check_reference_render(field, signal_t, opt, dev):
+    """One 66x1030 frame of the reference field through Simulator.render
+    with the U-Net refine (bfloat16 MLPs), twice, with s/frame, peak memory
+    and launches (the field's chunk of rays, frame_chunk, read off them);
+    then, with float32 MLPs, the frame's first chunk against the same rays
+    rendered on the card's plain versions."""
+    from lidar4d_tpu_torch.models.renderer import frame_chunk, render_rays
+    from lidar4d_tpu_torch.ops import _cuda
+    from lidar4d_tpu_torch.sim.simulator import Simulator, build_novel_rays
+
+    H, W = opt.H_lidar, opt.W_lidar
+    rays_o, rays_d = build_novel_rays(np.eye(4, dtype=np.float32)[None], H, W, opt.fov_lidar)
+    times = np.array([REFERENCE_FRAME_T], np.float32)
+    frames = []
+
+    class Hooked(Simulator):
+        def _refine(self, raydrop, intensity, depth):
+            frames.append((raydrop, intensity, depth))
+            return super()._refine(raydrop, intensity, depth)
+
+    sim = Hooked("lidar4d", opt, field, signal_t, use_refine=True, H_lidar=H, W_lidar=W,
+                 device=dev)
+    chunk = frame_chunk(field)
+    seconds = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = sim.render(rays_o, rays_d, times, save_pc=False, save_img=False, save_video=False)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_cuda.LAUNCHES)
+    n_chunks = -(-H * W // chunk)
+    want = {k: n_chunks * v if k.endswith("_fwd") else 0
+            for k, v in per_density_call(field).items()}
+    print(f"  render 1 frame {H}x{W} (Simulator.render, U-Net refine): {seconds[0]:.3f} s, then "
+          f"{seconds[1]:.3f} s; peak memory {peak:.2f} GiB; chunk {chunk} rays ({n_chunks} "
+          f"chunks); launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"render launches {launches}, expected {want}")
+    for k, v in zip(("raydrop", "intensity", "depth"), frames[-1]):
+        print(f"  frame {k}: mean {v.mean().item():.5f} min {v.min().item():.5f} "
+              f"max {v.max().item():.5f}", flush=True)
+        if tuple(v.shape) != (H, W) or not torch.isfinite(v).all():
+            raise AssertionError(f"the reference frame's {k} is not finite of shape ({H}, {W})")
+    if pred is None or pred.ndim != 2 or pred.shape[1] != 4 or not np.isfinite(pred).all():
+        raise AssertionError("the reference frame's point cloud is not a finite [M, 4] array")
+
+    frames.clear()
+    with mlp_dtype(torch.float32):
+        sim.render(rays_o, rays_d, times, save_pc=False, save_img=False, save_video=False)
+        o, d = (torch.as_tensor(r[0, :chunk], device=dev) for r in (rays_o, rays_d))
+        with plain_kernels(), torch.no_grad():
+            plain = render_rays(field, signal_t, o, d, times[0], num_steps=opt.num_steps,
+                                with_aux=False)
+    raydrop, intensity, depth = (v.reshape(-1)[:chunk] for v in frames[-1])
+    gaps = {}
+    for k, got, want_ in (("depth", depth, plain["depth_lidar"]),
+                          ("raydrop", raydrop, plain["image_lidar"][:, 0]),
+                          ("intensity", intensity, plain["image_lidar"][:, 1])):
+        gaps[k] = (got - want_).abs().max().item() / max(want_.abs().max().item(), 1e-30)
+    print(f"  the frame's first {chunk}-ray chunk (float32 MLPs) against the card's plain "
+          f"versions: max relative gap {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}"
+          f" (tolerance {REFERENCE_CHUNK_RTOL:g})", flush=True)
+    if not all(v <= REFERENCE_CHUNK_RTOL for v in gaps.values()):
+        raise AssertionError(f"the reference render's first chunk differs from the plain "
+                             f"versions': {gaps}")
+    return {"s_per_frame": seconds, "peak_gib": peak, "chunk": chunk, "launches": launches,
+            "chunk_vs_plain": gaps}
+
+
+def check_reference_cli(root, scale, offset, dev, field):
+    """The training CLI with the reference config on the synthetic scene
+    (the trainer phase wrote it under `root`/scene): one epoch, one
+    evaluation of the val frames, no refine (--train_only); then the
+    simulation CLI with --kitti2nus on its checkpoint in a fresh process.
+    Checks every train kernel's launches per step in the epoch, the forward
+    kernels' per chunk of rays in evaluation and simulation, finite losses
+    and clouds."""
+    from lidar4d_tpu_torch.cli import main_lidar4d
+    from lidar4d_tpu_torch.models.renderer import frame_chunk
+
+    scene, ws = f"{root}/scene", f"{root}/reference_workspace"
+    n_train = sum(1 for f in range(SCENE["num_frames"]) if f % 5 != 4)
+    data = ["--path", scene, "--sequence_id", SCENE["sequence_id"],
+            "--num_frames", str(SCENE["num_frames"]), "--scale", repr(scale),
+            "--offset", *map(repr, offset), "--seed", str(SEED), "--device", str(dev)]
+    argv = ["--config", REFERENCE_CONFIG, "--dataloader", "synthetic", *data,
+            "--synthetic_H", str(SCENE["H"]), "--synthetic_W", str(SCENE["W"]),
+            "--synthetic_seed", str(SCENE["seed"]), "--workspace", ws, "--iters", str(n_train),
+            "--eval_interval", "1", "--train_only", "--ckpt", "scratch"]
+    probe = TrainerProbe()
+    t0 = time.perf_counter()
+    with probe.installed():
+        trainer = main_lidar4d.main(argv)
+    t_run = time.perf_counter() - t0
+    records = read_jsonl(trainer.metrics_path)
+    epochs = [r for r in records if "rays_per_sec" in r]
+    evals = [r for r in records if "valid_loss" in r]
+    stages = {}
+    for stage, seconds, launches in probe.stages:
+        stages.setdefault(stage, []).append({"seconds": seconds, "launches": launches})
+    n_val = trainer.eval_seconds["frames"]
+    H, W = SCENE["H"], SCENE["W"]
+    step = launches_per_step(field, density_calls=1)
+    want = {"epoch": {k: n_train * v for k, v in step.items()},
+            "evaluate": {k: n_val * -(-H * W // frame_chunk(field)) * v if k.endswith("_fwd")
+                         else 0 for k, v in per_density_call(field).items()}}
+    failures = []
+    for stage, w in want.items():
+        got = stages[stage][0]["launches"] if len(stages.get(stage, ())) == 1 else None
+        print(f"  {stage}: launches {got} (expected {w})", flush=True)
+        if got != w:
+            failures.append(f"{stage} launches {got}, expected {w}")
+    for r in epochs:
+        print(f"  epoch {r['epoch']}: {r['sampler']} sampler, patch {r['patch']}: loss "
+              f"{r['loss']:.6f}, {r['rays_per_sec']:.1f} train rays/s", flush=True)
+    if [(r["sampler"], r["patch"]) for r in epochs] != [("uniform", "1")] or not all(
+            np.isfinite(r["loss"]) for r in epochs):
+        failures.append(f"epochs {epochs}")
+    print("  eval record " + json.dumps(evals), flush=True)
+    if len(evals) != 1 or not np.isfinite(evals[0]["valid_loss"]):
+        failures.append(f"eval records {evals}")
+    ckpt_dir = trainer.ckpt.ckpt_dir
+    sizes = {n: sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                    os.walk(os.path.join(ckpt_dir, n)) for f in fs)
+             if os.path.isdir(os.path.join(ckpt_dir, n)) else os.path.getsize(
+                 os.path.join(ckpt_dir, n)) for n in sorted(os.listdir(ckpt_dir))}
+    eval_s = {k: v / n_val for k, v in trainer.eval_seconds.items() if k != "frames"}
+    print(f"  trainer CLI: {t_run:.1f} s; stages (s) "
+          + json.dumps({k: [round(x["seconds"], 3) for x in v] for k, v in stages.items()})
+          + f"; eval s/frame {json.dumps({k: round(v, 4) for k, v in eval_s.items()})}; "
+          f"checkpoint save s {[round(x, 3) for x in probe.ckpt['save']]}, bytes "
+          f"{json.dumps(sizes)}", flush=True)
+    if "lidar4d_ep0001" not in sizes:
+        failures.append(f"checkpoints {sorted(sizes)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    sim_ws = f"{root}/reference_sim"
+    wall, s_frame, launches, loaded = run_sim_cli(
+        ["--config", REFERENCE_CONFIG, *data, "--workspace", sim_ws,
+         "--ckpt", os.path.join(ckpt_dir, "lidar4d_ep0001"), "--kitti2nus"])
+    check_launches("reference simulation CLI", launches)
+    n_frames = SCENE["num_frames"]
+    per_chunk = per_density_call(field)["hash_grid_fwd"]
+    want_fwd = n_frames * -(-32 * 1024 // frame_chunk(field)) * per_chunk
+    clouds = read_clouds(sim_ws)
+    # a field of one epoch may keep no point: its ray-drop head is barely
+    # trained (alpha_r = 0.01) and the cloud keeps pixels above 0.5
+    check_clouds("reference simulation CLI", clouds, n_frames, 32, 1024, min_points=0)
+    print(f"  simulation CLI --kitti2nus (32x1024, no refine), a fresh process: {wall:.1f} s wall, "
+          f"{s_frame:.4f} s/frame rendering, points a frame "
+          f"{np.mean([len(c) for c in clouds]):.1f}; launches {launches} (hash_grid_fwd "
+          f"expected {want_fwd})", flush=True)
+    if launches["hash_grid_fwd"] != want_fwd:
+        raise AssertionError(f"simulation CLI hash_grid_fwd launches {launches}, expected "
+                             f"{want_fwd}")
+    return {"trainer": {"seconds": t_run, "epoch": epochs[0], "eval": evals[0],
+                        "eval_s_per_frame": eval_s, "stage_s": {
+                            k: [x["seconds"] for x in v] for k, v in stages.items()},
+                        "checkpoint_save_s": probe.ckpt["save"], "checkpoint_bytes": sizes,
+                        "launches": {k: v[0]["launches"] for k, v in stages.items()}},
+            "simulate_kitti2nus": {"cli_wall_s": wall, "s_per_frame": s_frame,
+                                   "launches": launches, "checkpoint": loaded,
+                                   "points_per_frame": float(np.mean([len(c) for c in clouds]))}}
+
+
+def check_reference(root, scale, offset, dev):
+    """The reference configuration (REFERENCE_CONFIG at the CLI defaults, no
+    width overridden) at full width from the port's seeded init: its
+    parameter count and routes, every kernel call of one step against its
+    plain version, REFERENCE_WARMUP + REFERENCE_TIMED steps with a profiled
+    one, one card step against the CPU's, one 66x1030 frame through
+    Simulator.render, then the training CLI (one epoch, one evaluation) and
+    the simulation CLI (--kitti2nus). Returns the phase's summary."""
+    from lidar4d_tpu_torch.cli.config import build_model_config, get_arg_parser
+    from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+
+    opt = get_arg_parser().parse_args(["--config", REFERENCE_CONFIG])
+    opt.near_lidar *= scale
+    opt.far_lidar *= scale
+    field = LiDAR4DField(build_model_config(opt), device=dev)
+    params = field.init(seed=SEED)
+    sizes = {k: sum(p.numel() for p in tree_leaves(v)) for k, v in params.items()}
+    print(f"  field of {REFERENCE_CONFIG}: {sum(sizes.values()):,} parameters "
+          f"{json.dumps(sizes)}; {opt.num_steps} uniform samples (coarse {opt.num_coarse}); "
+          f"flow clouds at most {opt.flow_cloud_max_points or 'all'} points", flush=True)
+    signal = signal_params(params)
+    signal_t = tree_to_torch(signal, dev)
+    ds, cache = scene_steps(f"{root}/scene", scale, offset, opt.flow_cloud_max_points)
+    out = {"parameters": sizes}
+    seconds = {}
+
+    t0 = time.perf_counter()
+    out["routes"], out["calls"], out["kernels"] = check_reference_kernels(
+        field, signal_t, ds, cache, opt, dev)
+    seconds["kernels"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run = train(field, params, ds, cache, opt, dev, REFERENCE_WARMUP, REFERENCE_TIMED,
+                what="reference")
+    out["steps"] = {"ms_per_step": run["ms_per_step"],
+                    "train_rays_per_s": TRAIN_RAYS / run["ms_per_step"] * 1e3,
+                    "peak_gib": run["peak_gib"], "losses": run["losses"],
+                    "profile": run["profile"],
+                    "launches_per_step": {k: v / (REFERENCE_WARMUP + REFERENCE_TIMED)
+                                          for k, v in run["launches"].items()}}
+    out["launches"] = run["launches"]
+    seconds["steps"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu_field = LiDAR4DField(field.cfg, device="cpu")
+    uniform = dict(num_steps=opt.num_steps)
+    with mlp_dtype(torch.float32):
+        cpu = step_grads(cpu_field, signal, ds, cache, uniform)
+        card = step_grads(field, signal, ds, cache, uniform, draws=cpu[3])
+    compare_steps("reference card vs cpu", field, signal, card, cpu, STEP_RTOL,
+                  UNIFORM_STEP_GRAD_RTOL, post_step=True)
+    del cpu, card
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["render"] = check_reference_render(field, signal_t, opt, dev)
+    del signal_t, params
+    torch.cuda.empty_cache()
+    seconds["render"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out.update(check_reference_cli(root, scale, offset, dev, field))
+    seconds["cli"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print("  reference phase seconds " + json.dumps({k: round(v, 2) for k, v in seconds.items()}),
+          flush=True)
+    return out
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2168,7 +2677,7 @@ def main():
     check_step_card_vs_cpu(tfield, params, ds, cache, opt, dev)
     seconds["train-check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_launches, _, _ = train(tfield, params, ds, cache, opt, dev)
+    train_launches = train(tfield, params, ds, cache, opt, dev)["launches"]
     seconds["train"] = time.perf_counter() - t0
 
     phase("parallel")
@@ -2202,6 +2711,11 @@ def main():
         t0 = time.perf_counter()
         preprocess_summary = check_preprocess(root, scale, offset)
         seconds["preprocess"] = time.perf_counter() - t0
+
+        phase("reference")
+        t0 = time.perf_counter()
+        reference_summary = check_reference(root, scale, offset, dev)
+        seconds["reference"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     print("seconds " + json.dumps({k: round(v, 2) for k, v in seconds.items()}), flush=True)
 
@@ -2226,6 +2740,9 @@ def main():
         "plane_bilinear_vjp": ("lidar4d_tpu_torch/csrc/plane_bilinear_vjp.cu",
                                f"{planes_py}:247", encoder_launches),
     }
+    for name in TRAIN_KERNELS:
+        if reference_summary["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the reference path")
     kernels = []
     for name, (src, replaces, launches) in sources.items():
         s = {**train_summary, **encoder_summary}[name]
@@ -2248,6 +2765,7 @@ def main():
     print(json.dumps({"trainer": trainer_summary}), flush=True)
     print(json.dumps({"simulate": simulate_summary}), flush=True)
     print(json.dumps({"preprocess": preprocess_summary}), flush=True)
+    print(json.dumps({"reference": reference_summary}), flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

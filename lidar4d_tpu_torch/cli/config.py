@@ -5,7 +5,8 @@ Port of `lidar4d_tpu/cli/config.py`: the reference's `key = value` txt
 config format supplies defaults, command-line flags override. Flag names,
 defaults and meanings are the reference's; the port adds `--device`. It
 leaves out the flags that would change nothing here: the TPU memory policies
-(`--remat_density`, `--density_chunk`), `--fp16` (the MLPs always run in
+(`--remat_density`, `--density_chunk`: the H100 holds even the reference
+configuration's density calls whole, PERF.md), `--fp16` (the MLPs always run in
 bfloat16) and `--preload`. `--num_devices`, `--mesh` and `--num_hosts` set
 the ray-parallel layout (`train.trainer.mesh_from_options`), and
 `ranks_to_start` how many local ranks the CLI starts for it.

@@ -21,6 +21,7 @@ from lidar4d_tpu_torch.models.hash_field import HashGrid4D
 from lidar4d_tpu_torch.models.planes_field import Planes4D
 from lidar4d_tpu_torch.models.unet import UNet
 from lidar4d_tpu_torch.ops._cuda import resolve_device
+from lidar4d_tpu_torch.ops.hash_onehot import FACT_MAX_ROWS, onehot_eligible
 from lidar4d_tpu_torch.ops.mlp import apply_mlp, init_mlp
 from lidar4d_tpu_torch.ops.trunc_exp import trunc_exp
 
@@ -123,6 +124,17 @@ class LiDAR4DField:
         return UNet(in_channels=3, out_channels=1)
 
     @property
+    def in_onehot_window(self) -> bool:
+        """Whether every hash table of the field (static and the three
+        dynamic planes) is within the reference's one-hot window,
+        FACT_MAX_ROWS rows a level: its trainer and its Simulator render such
+        a field in 16,384-ray chunks and any other in 4,096
+        (`renderer.frame_chunk`)."""
+        enc = self.hash_encoder
+        specs = [enc.static_spec] + [enc.dynamic_spec(p) for p in range(3)]
+        return all(onehot_eligible(s, FACT_MAX_ROWS) for s in specs)
+
+    @property
     def sigma_input_dim(self) -> int:
         return self.planes_encoder.n_output_dims + self.hash_encoder.n_output_dims
 
@@ -185,8 +197,13 @@ class LiDAR4DField:
             t2 = np.clip(np.float32(frame_idx - 1.0) / np.float32(c.num_frames), 0.0, 1.0)
             xs = torch.stack([x01, x01 + flow[:, :3], x01 + flow[:, 3:]])
             ts = (t, np.float32(t1), np.float32(t2))
+            # the hash encoder's warped variants are the reference's no-grad
+            # neighbour lookups: given without the flow net's graph, variant
+            # 0's coordinates need a gradient only where x does, and an
+            # unfused encode above the factorized window keeps its kernel
+            # (hash_encode_auto) instead of the x-differentiable gather
             hash_d, hash_d1, hash_d2 = self.hash_encoder.forward_dynamic_multi(
-                params["hash"], xs, ts)
+                params["hash"], torch.cat([x01[None], xs[1:].detach()]), ts)
             # coord_grad_lead=1: variant 0's coordinates are ray positions;
             # the warped variants keep their coordinate gradient, the flow
             # net's only gradient path through the planes

@@ -8,10 +8,12 @@ arithmetic) are proven bitwise-equal to a gather and a stable argsort
 (tests/test_models.py), so this port uses `torch.searchsorted`,
 `torch.gather` and `torch.sort(stable=True)` directly. The reference's
 host-loop twin `render_staged_host` existed only to dodge a TPU fault; here
-it is another name of the one chunk loop, `render_staged`. The reference's `density_chunk`, a
-TPU memory policy, has no counterpart either: each density call takes all
-samples of a ray chunk (16,384 rays x 256 fine samples = 4.2 M points on the
-flagship config); PERF.md records the peak device memory this costs.
+it is another name of the one chunk loop, `render_staged`. The reference's
+`density_chunk` / `remat_density`, a TPU memory policy, has no counterpart
+either: each density call takes all samples of a ray chunk (16,384 rays x
+256 fine samples = 4.2 M points on the flagship config, 4,096 rays x 768 =
+3.1 M on the reference config) and of a train batch; PERF.md records the
+peak device memory this costs.
 """
 
 import torch
@@ -193,15 +195,24 @@ def render_staged(field, params, rays_o, rays_d, t, num_steps=768, chunk=4096,
     return {"depth_lidar": torch.cat(depths), "image_lidar": torch.cat(images)}
 
 
-# The reference's trainer renders gather-path fields through its host-loop
-# twin (4,096-ray chunks) and one-hot fields through `render_staged` (16,384);
-# here both are this chunk loop, and the chunk changes memory, not results.
+# The reference renders gather-path fields through its host-loop twin of
+# `render_staged` and one-hot fields through `render_staged`; here both are
+# this chunk loop.
 render_staged_host = render_staged
+
+# Rays a chunk of the full-frame renders, by the reference's rule (its
+# trainer's and its Simulator's): 16,384 for a field inside the one-hot
+# window, 4,096 for any other. The chunk changes memory, not results.
+ONEHOT_CHUNK, GATHER_CHUNK = 16384, 4096
+
+
+def frame_chunk(field):
+    return ONEHOT_CHUNK if field.in_onehot_window else GATHER_CHUNK
 
 
 @torch.no_grad()
 def render_frames_staged(field, params, rays_o, rays_d, times, num_steps=768,
-                         chunk=16384, num_coarse=0, num_fine=0, device="cuda", mesh=None):
+                         chunk=ONEHOT_CHUNK, num_coarse=0, num_fine=0, device="cuda", mesh=None):
     """Multi-frame render, the simulator's hot path.
 
     rays_o / rays_d: [B, N, 3] (numpy or tensors), times: B scalars in [0, 1].

@@ -16,7 +16,7 @@ import warnings
 import numpy as np
 import torch
 
-from lidar4d_tpu_torch.models.renderer import render_frames_staged
+from lidar4d_tpu_torch.models.renderer import frame_chunk, render_frames_staged
 from lidar4d_tpu_torch.ops._cuda import resolve_device
 from lidar4d_tpu_torch.ops.pano import pano_to_lidar_with_intensities
 from lidar4d_tpu_torch.ops.rays import pano_ray_directions
@@ -76,7 +76,8 @@ class Simulator:
                save_video=True, mesh=None, frame_batch=8):
         """rays_o / rays_d: [B, H*W, 3]; times: [B] in [0, 1].
 
-        Renders `frame_batch` frames per `render_frames_staged` call. With
+        Renders `frame_batch` frames per `render_frames_staged` call, in the
+        reference's chunk of rays for the field (`frame_chunk`). With
         `mesh` (every rank calls this alike, with its own device) each
         frame's rays are split over the ranks, every rank gets the whole
         frame, and rank 0 alone writes files.
@@ -95,7 +96,7 @@ class Simulator:
                 num_steps=self.opt.num_steps,
                 num_coarse=getattr(self.opt, "num_coarse", 0),
                 num_fine=getattr(self.opt, "num_fine", 0),
-                device=self.device, mesh=mesh,
+                chunk=frame_chunk(self.field), device=self.device, mesh=mesh,
             )
             for k in range(out["depth_lidar"].shape[0]):
                 i = s + k

@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from lidar4d_tpu_torch.interop import tree_leaves, tree_map, tree_paths
-from lidar4d_tpu_torch.models.renderer import render_staged
+from lidar4d_tpu_torch.models.renderer import frame_chunk, render_staged
 from lidar4d_tpu_torch.ops.pano import pano_to_lidar
 from lidar4d_tpu_torch.ops.rays import get_lidar_rays
 from lidar4d_tpu_torch.parallel.mesh import (
@@ -361,27 +361,15 @@ class Trainer:
         return ema_params(self.state.ema) if self.state.ema.num_updates > 0 \
             else self.state.params
 
-    def _field_is_onehot(self):
-        """True when every hash table of the field is within the one-hot
-        window (the reference's choice of the 16,384-ray eval chunk)."""
-        from lidar4d_tpu_torch.ops.hash_onehot import FACT_MAX_ROWS, onehot_eligible
-
-        enc = self.field.hash_encoder
-        specs = [enc.static_spec] + [enc.dynamic_spec(p) for p in range(3)]
-        return all(onehot_eligible(s, FACT_MAX_ROWS) for s in specs)
-
     def _render_frame(self, params, dataset, i):
         """(raydrop, intensity, depth) [H, W] numpy of frame i."""
         H, W = dataset.H_lidar, dataset.W_lidar
         frame = dataset.frame(i)
         rays = get_lidar_rays(torch.as_tensor(frame["pose"], device=self.device),
                               dataset.intrinsics_lidar, H, W, N=-1)
-        # the reference renders one-hot fields through `render_staged` in
-        # 16,384-ray chunks and others through `render_staged_host` in 4,096;
-        # here both are one chunk loop, and the chunk changes memory only
         out = render_staged(self.field, params, rays["rays_o"], rays["rays_d"],
                             np.float32(frame["time"]), num_steps=self.opt.num_steps,
-                            chunk=16384 if self._field_is_onehot() else 4096,
+                            chunk=frame_chunk(self.field),
                             num_coarse=getattr(self.opt, "num_coarse", 0),
                             num_fine=getattr(self.opt, "num_fine", 0), mesh=self.mesh)
         image = out["image_lidar"].cpu().numpy()

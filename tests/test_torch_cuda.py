@@ -455,6 +455,33 @@ def test_hash_grid_fwd_edges(dev, spec, n):
     assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL
 
 
+# The reference configuration's hash specs (configs/kitti360_4950.txt at the
+# CLI defaults) at a reference step's call sizes, forward and backward: the
+# static hash (8 levels of 2^19 rows, no level slice small enough for the
+# backward's shared-memory accumulator) and the xy dynamic planes (2^15
+# rows, classic at F = 4) on 1,024 rays x 768 samples, the flow grid (F = 8,
+# 2^18 rows a level) on a whole 66 x 1030 cloud of the flow loss, and the
+# xz / yz dynamic planes folded to F' = 1 (2^13 rows).
+@pytest.mark.parametrize("spec,n", [
+    (HashEncoderSpec(3, 8, 4, 19, 512, 32768), 1024 * 768),
+    (HashEncoderSpec(2, 8, 4, 15, 512, 32768), 1024 * 768),
+    (HashEncoderSpec(3, 8, 8, 18, 32, 8192), 66 * 1030),
+    (HashEncoderSpec(2, 8, 1, 13, 512, 32768), 1024 * 768),
+], ids=str)
+def test_reference_specs_match_plain(dev, spec, n):
+    pts = _ray_points(dev, -(-n // 768), 768, seed=70)[:n]
+    xs = pts[:, :spec.n_dims][None].contiguous()
+    tables = _rand(dev, 1, spec.n_rows, spec.n_features, lo=-1, hi=1, seed=71)
+    before = dict(_cuda.LAUNCHES)
+    got = ho.hash_grid_fwd(spec, tables, xs)
+    assert _cuda.LAUNCHES["hash_grid_fwd"] == before["hash_grid_fwd"] + 1
+    assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL
+    cot = _rand(dev, 1, n, spec.n_output_dims, lo=-1, hi=1, seed=72)
+    got = ho.hash_grid_bwd(spec, xs, cot)
+    assert _cuda.LAUNCHES["hash_grid_bwd"] == before["hash_grid_bwd"] + 1
+    assert _rel(got, ho.hash_grid_bwd_plain(spec, xs, cot)) <= GRAD_RTOL
+
+
 # The redesigned plane_bilinear_vjp: the flagship time planes [3, 8, 8, S]
 # (the [C, T, S] gradient in shared memory; the plane staged beside it at
 # S <= 128, read through L1 at S = 256), ray-ordered points at a per-ray time
