@@ -31,6 +31,9 @@ from lidar4d_tpu_torch.models import planes_field as tpf
 from lidar4d_tpu_torch.ops import hash_enc as the
 from lidar4d_tpu_torch.ops import hash_onehot as tho
 from lidar4d_tpu_torch.ops import plane_onehot as tpo
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 VALUE_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -26,6 +26,9 @@ from lidar4d_tpu.eval import ssim as jssim
 from lidar4d_tpu_torch.eval import lpips as tlpips
 from lidar4d_tpu_torch.eval import meters as tmeters
 from lidar4d_tpu_torch.eval import ssim as tssim
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 EXACT = 1e-12
 LPIPS_RTOL = 1e-5

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX package,
-and chip_smoke.py refuses to report a result without a GPU or without the
-package beside it."""
+"""The port stands alone: it imports no JAX and nothing of the JAX package
+(nor do chip_smoke.py and scripts/converge_torch.py), and chip_smoke.py
+refuses to report a result without a GPU or without the package beside it."""
 
 import ast
 import json
@@ -18,7 +18,8 @@ LAZY_ONLY = ("cv2", "imageio", "tensorboardX")   # only inside functions that wr
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "scripts" / "converge_torch.py"]
 
 
 def _imports(tree):

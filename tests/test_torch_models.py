@@ -37,6 +37,9 @@ from lidar4d_tpu_torch.models import lidar4d as tl
 from lidar4d_tpu_torch.models import renderer as tr
 from lidar4d_tpu_torch.ops import mlp as tmlp
 from lidar4d_tpu_torch.sim import simulator as tsim
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 TINY = dict(
     base_resolution=8, max_resolution=32, log2_hashmap_size=8, n_levels_hash=2,

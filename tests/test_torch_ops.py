@@ -26,6 +26,9 @@ from lidar4d_tpu_torch.ops import pano as tpano
 from lidar4d_tpu_torch.ops import plane_onehot as tpo
 from lidar4d_tpu_torch.ops import rays as trays
 from lidar4d_tpu_torch.ops import trunc_exp as tte
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 # (n_dims, n_levels, n_features, log2, base, max): every kind of level
 SPECS = {

@@ -52,6 +52,9 @@ from lidar4d_tpu_torch.parallel.multiseq import (
 from lidar4d_tpu_torch.train import flow_cache as tfc
 from lidar4d_tpu_torch.train import train_step as tts
 from lidar4d_tpu_torch.train.losses import LossConfig
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 H, W, FRAMES, SEQ = 16, 64, 6, "9000"
 FOV = (2.0, 26.9)

@@ -22,6 +22,7 @@ at `BF16_TOL` for the render.
 """
 
 import dataclasses
+import functools
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -32,6 +33,7 @@ import pytest
 import torch
 
 import lidar4d_tpu_torch.models.hash_field as thash_mod
+import lidar4d_tpu_torch.ops.hash_enc as hash_enc
 import lidar4d_tpu_torch.ops.hash_onehot as tho
 import test_torch_train as ttt
 from lidar4d_tpu.cli import config as jconfig
@@ -42,10 +44,14 @@ from lidar4d_tpu_torch import interop
 from lidar4d_tpu_torch.cli import config as tconfig
 from lidar4d_tpu_torch.models import lidar4d as tl
 from lidar4d_tpu_torch.models import renderer as tr
+from lidar4d_tpu_torch.ops import mlp as tmlp
 from lidar4d_tpu_torch.ops import plane_onehot as tpo
 from lidar4d_tpu_torch.sim import simulator as tsim
 from lidar4d_tpu_torch.train import trainer as ttrainer
 from test_torch_train import scene  # noqa: F401  (the tiny synthetic scene, a module fixture)
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "kitti360_4950.txt"
 GATHER = dict(
@@ -165,25 +171,36 @@ def test_build_model_config_of_the_reference_config_matches_jax():
 
 
 # ------------------------------------------------------------------- (b)
+def _float64_lagrange_weights(monkeypatch):
+    """The Lagrange weights (float32 values, as both packages compute them)
+    handed out as float64, so that the port's plain path runs in float64."""
+    weights = hash_enc.lagrange_weights
+    for mod in (hash_enc, tho, thash_mod):
+        monkeypatch.setattr(mod, "lagrange_weights",
+                            lambda *a: weights(*a).astype(np.float64))
+
+
 def test_density_value_and_grad_match_chunked_remat_jax(fields, monkeypatch):
     """Value and gradient of sum(sigma) + sum(geo_feat) with respect to every
     parameter leaf at the first, middle and last frame, float32 MLPs and
     lerp in both packages, on 768 points through each package's
     `_query_density` (each point a ray of one sample; JAX in chunks of
     JAX_CHUNK, the last one padded, each rematerialised): points uniform in
-    the box, as tests/test_torch_models.py's density tests take them, at
-    TIGHT_TOL / GRAD_TOL; and the samples of 16 rays x 48 near the origin, whose hash-table
-    gradients sit further apart (measured <= 3.8e-5 of a leaf's largest
-    entry, the same with JAX unchunked and without the flow warp), at the
-    float32 train step's gradient tolerance (F32_GRAD_TOL, 6e-5). One JAX
-    trace for all."""
+    the box, as tests/test_torch_models.py's density tests take them, and
+    the samples of 16 rays x 48 near the origin, at TIGHT_TOL / GRAD_TOL.
+    Each float32 gradient is also held at GRAD_TOL against a float64
+    oracle, the port's plain path with parameters, points and MLPs in
+    float64: the port against the exact result, not only against JAX's
+    rounding (measured: port and JAX each <= 7.4e-7 from float64 and <=
+    8.2e-7 from each other on both layouts). One JAX trace for all."""
     jf, tf, jparams = fields
     tp = interop.params_from_jax(tf, jparams)
+    tp64 = interop.tree_map(lambda p: p.double(), tp)
     ttt._f32_everywhere(monkeypatch)
     o, d = _rays(5, 16)
     z = np.linspace(tf.cfg.near_lidar, tf.cfg.far_lidar, 48, dtype=np.float32)
-    layouts = {"uniform": (np.random.default_rng(6).uniform(-1, 1, (768, 3)), GRAD_TOL),
-               "rays": ((o[:, None] + d[:, None] * z[:, None]).reshape(-1, 3), ttt.F32_GRAD_TOL)}
+    layouts = {"uniform": np.random.default_rng(6).uniform(-1, 1, (768, 3)),
+               "rays": (o[:, None] + d[:, None] * z[:, None]).reshape(-1, 3)}
     # each point a ray of one sample at z = 0: one shape, one JAX trace
     d, z = np.tile(np.float32([[1, 0, 0]]), (768, 1)), np.zeros((768, 1), np.float32)
     assert z.size > JAX_CHUNK and z.size % JAX_CHUNK
@@ -192,29 +209,40 @@ def test_density_value_and_grad_match_chunked_remat_jax(fields, monkeypatch):
         sigma, geo = jr._query_density(jf, p, o, jnp.asarray(d), jnp.asarray(z), t, jf.cfg.bound)
         return jnp.sum(sigma) + jnp.sum(geo)
 
+    def port(params, o, t, dtype):
+        leaves = [p.requires_grad_() for p in interop.tree_leaves(params)]
+        sigma, geo = tr._query_density(tf, params, *(torch.from_numpy(a).to(dtype)
+                                                     for a in (o, d, z)), t, tf.cfg.bound)
+        got = torch.sum(sigma) + torch.sum(geo)
+        return got.detach(), torch.autograd.grad(got, leaves, allow_unused=True)
+
     jgrad = jax.jit(jax.value_and_grad(jloss))
-    leaves = [p.requires_grad_() for p in interop.tree_leaves(tp)]
     try:
-        for layout, (o, grad_tol) in layouts.items():
+        for layout, o in layouts.items():
             o = o.astype(np.float32)
             for t in (0.0, 0.5, 1.0):
                 want, wg = jgrad(jparams, o, jnp.float32(t))
-                sigma, geo = tr._query_density(tf, tp, torch.from_numpy(o), torch.from_numpy(d),
-                                               torch.from_numpy(z), t, tf.cfg.bound)
-                got = torch.sum(sigma) + torch.sum(geo)
-                tg = torch.autograd.grad(got, leaves, allow_unused=True)
+                got, tg = port(tp, o, t, torch.float32)
+                with pytest.MonkeyPatch.context() as m:
+                    _float64_lagrange_weights(m)
+                    f64 = functools.partial(tmlp.apply_mlp, dtype=torch.float64)
+                    m.setattr(ttt.tlidar_mod, "apply_mlp", f64)
+                    m.setattr(ttt.tflow_mod, "apply_mlp", f64)
+                    exact, xg = port(tp64, o, t, torch.float64)
                 what = f"{layout}, t = {t}"
-                ttt._close(got.detach(), want, TIGHT_TOL, f"{what}: value")
+                ttt._close(got, want, TIGHT_TOL, f"{what}: value")
+                ttt._close(got, exact, TIGHT_TOL, f"{what}: value against float64")
                 live = 0
-                for i, (g, w) in enumerate(zip(tg, jax.tree.leaves(wg))):
+                for i, (g, w, x) in enumerate(zip(tg, jax.tree.leaves(wg), xg)):
                     w = np.asarray(w)
                     if g is None:
-                        assert not w.any(), f"{what}: leaf {i}"
+                        assert not w.any() and x is None, f"{what}: leaf {i}"
                         continue
                     assert torch.isfinite(g).all(), f"{what}: leaf {i}"
                     if np.abs(w).max() > 0:
                         live += 1
-                        ttt._close(g, w, grad_tol, f"{what}: grad leaf {i}")
+                        ttt._close(g, w, GRAD_TOL, f"{what}: grad leaf {i}")
+                        ttt._close(g, x, GRAD_TOL, f"{what}: grad leaf {i} against float64")
                 assert live >= 20
     finally:
         jax.clear_caches()

@@ -43,6 +43,9 @@ from lidar4d_tpu.train import refine as jrefine
 from lidar4d_tpu_torch import interop
 from lidar4d_tpu_torch.models.unet import UNet as TUNet
 from lidar4d_tpu_torch.train import refine as trefine
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 B, H, W = 2, 32, 64
 PROB_ATOL = 1e-4

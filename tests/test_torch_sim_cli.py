@@ -56,6 +56,9 @@ from lidar4d_tpu_torch.data import synthetic as tsynth
 from lidar4d_tpu_torch.ops import mlp as tmlp
 from lidar4d_tpu_torch.sim.simulator import Simulator, build_novel_rays, shift_trajectory
 from test_torch_trainer_slice import _f32_plane_linear, _jax_checkpoint
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "workspace", "smoke", "checkpoints", "lidar4d_ep0020_refine")

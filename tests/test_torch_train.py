@@ -38,7 +38,10 @@ Tolerances, and why:
 """
 
 import functools
+import multiprocessing
+import os
 import random
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -87,6 +90,9 @@ from lidar4d_tpu_torch.train import losses as tlosses
 from lidar4d_tpu_torch.train import optimizer as topt
 from lidar4d_tpu_torch.train import train_step as tts
 from lidar4d_tpu_torch.utils import pointcloud as tpc
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 H, W, FRAMES, SEQ = 16, 64, 6, "9000"
 FOV = (2.0, 26.9)
@@ -417,19 +423,31 @@ def _jax_draws(key, patch=1, num_steps=0, num_coarse=COARSE, num_fine=FINE, rays
     rays.py): ray indices (uniform pixels, or with patch > 1 overlapped
     patches: rays.py:37-86), the z jitter (coarse, or with num_coarse = 0
     the uniform sampler's num_steps), sample_pdf's u jitter, t_rand."""
+    draws = {k: np.array(v) for k, v in _jax_draw_arrays(
+        key, patch if isinstance(patch, int) else tuple(patch), num_steps, num_coarse,
+        num_fine, rays).items()}
+    draws["t_rand"] = float(draws["t_rand"])
+    for k in ("z_jitter", "u_jitter"):
+        if k in draws:
+            draws[k] = torch.from_numpy(draws[k])
+    return draws
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _jax_draw_arrays(key, patch, num_steps, num_coarse, num_fine, rays):
+    """_jax_draws' arrays, in one compile (the same values as drawn op by op)."""
     k_rays, k_perturb, k_flow = jax.random.split(key, 3)
     px = patch if isinstance(patch, int) else patch[0]
-    inds = np.asarray(jrays.get_lidar_rays(jnp.eye(4), FOV, H, W, key=k_rays, N=rays,
-                                           patch_size=patch if px > 1 else 1)["inds"])
+    inds = jrays.get_lidar_rays(jnp.eye(4), FOV, H, W, key=k_rays, N=rays,
+                                patch_size=patch if px > 1 else 1)["inds"]
     n = inds.shape[0]
-    draws = {"inds": inds, "t_rand": float(jax.random.uniform(k_flow))}
+    draws = {"inds": inds, "t_rand": jax.random.uniform(k_flow)}
     if num_coarse > 0:
         k1, k2, _ = jax.random.split(k_perturb, 3)
-        draws["z_jitter"] = torch.from_numpy(np.array(jax.random.uniform(k1, (n, num_coarse))))
-        draws["u_jitter"] = torch.from_numpy(np.array(jax.random.uniform(k2, (n, num_fine))))
+        draws["z_jitter"] = jax.random.uniform(k1, (n, num_coarse))
+        draws["u_jitter"] = jax.random.uniform(k2, (n, num_fine))
     else:
-        draws["z_jitter"] = torch.from_numpy(np.array(jax.random.uniform(k_perturb,
-                                                                         (n, num_steps))))
+        draws["z_jitter"] = jax.random.uniform(k_perturb, (n, num_steps))
     return draws
 
 
@@ -446,30 +464,45 @@ def _grad_spy(opt):
     return optax.GradientTransformation(init, update)
 
 
-def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None):
-    """One step of each package from the same params, cache and draws, at
-    `patch` and `sampling` (the step's num_steps / num_coarse / num_fine;
-    default hierarchical COARSE + FINE). Returns (JAX: metrics, grads,
-    params; port: metrics, grads, params)."""
-    jf, tf, jparams = fields
-    scale = scene["scale"]
-    cache = scene["cache"]
-    frame = scene["ds"].frame(frame_i)
+def _jax_step(jf, jparams, scale, cache, frame, key=7, patch=1, sampling=None):
+    """One JAX `make_train_step` step from `jparams` on `frame` with the
+    step's own draws for `key`, at `patch` and `sampling` (the step's
+    num_steps / num_coarse / num_fine; default hierarchical COARSE + FINE).
+    Returns (metrics, gradient leaves, post-step parameter leaves), numpy."""
     jloss = jlosses.LossConfig(flow_loss=True, grad_loss=True, scale=scale, num_frames=FRAMES,
                                iters=ITERS)
     sampling = sampling or dict(num_coarse=COARSE, num_fine=FINE)
     kw = dict(H=H, W=W, fov_lidar=FOV, num_rays=RAYS, patch_size=patch, **sampling)
     spy = _grad_spy(jopt.make_optimizer(LR, ITERS, jf.param_group_labels(jparams)))
     jp = jax.tree.map(jnp.asarray, jparams)
-    jstate = jts.TrainState(params=jp, opt_state=spy.init(jp), ema=jema.ema_init(jp),
-                            step=jnp.int32(0))
+    # one compile for the whole initial state, not one per leaf and op
+    opt_state, ema = jax.jit(lambda p: (spy.init(p), jema.ema_init(p)))(jp)
+    jstate = jts.TrainState(params=jp, opt_state=opt_state, ema=ema, step=jnp.int32(0))
     jstep = jts.make_train_step(jf, spy, jloss, **kw)
     jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, frame), jax.tree.map(jnp.asarray, cache),
                        jax.random.PRNGKey(key))
+    return ({k: float(v) for k, v in jm.items()},
+            [np.asarray(g) for g in jax.tree.leaves(jstate.opt_state["grads"])],
+            [np.asarray(p) for p in jax.tree.leaves(jstate.params)])
+
+
+def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None, jax_result=None):
+    """One step of each package from the same params, cache and draws (the
+    JAX step's, see `_jax_step`). `jax_result`: the JAX step's result when
+    it was computed elsewhere (`jax_steps`). Returns (JAX: metrics, grads,
+    params; port: metrics, grads, params)."""
+    jf, tf, jparams = fields
+    cache = scene["cache"]
+    frame = scene["ds"].frame(frame_i)
+    if jax_result is None:
+        jax_result = _jax_step(jf, jparams, scene["scale"], cache, frame, key, patch, sampling)
+    sampling = sampling or dict(num_coarse=COARSE, num_fine=FINE)
+    kw = dict(H=H, W=W, fov_lidar=FOV, num_rays=RAYS, patch_size=patch, **sampling)
 
     tstate, topt_ = tts.init_train_state(tf, lr=LR, iters=ITERS,
                                          params=interop.params_from_jax(tf, jparams))
-    tloss = tlosses.LossConfig(**vars(jloss))
+    tloss = tlosses.LossConfig(**vars(jlosses.LossConfig(
+        flow_loss=True, grad_loss=True, scale=scene["scale"], num_frames=FRAMES, iters=ITERS)))
     tstep = tts.make_train_step(tf, topt_, tloss, **kw)
     tcache = tts.flow_cache_to_device(cache, "cpu")
     draws = _jax_draws(jax.random.PRNGKey(key), patch, sampling.get("num_steps", 0),
@@ -478,13 +511,57 @@ def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None):
     tstate, tm2 = tstep(tstate, frame, tcache, draws)
     for k in tm:
         assert float(tm2[k]) == float(tm[k]), k
-    jg = jax.tree.leaves(jstate.opt_state["grads"])
     tg = [np.zeros(p.shape, np.float32) if g is None else g.numpy()
           for g, p in zip(tgrads, interop.tree_leaves(tstate.params))]
-    return ({k: float(v) for k, v in jm.items()}, [np.asarray(g) for g in jg],
-            [np.asarray(p) for p in jax.tree.leaves(jstate.params)],
-            {k: float(v) for k, v in tm.items()}, tg,
+    return (*jax_result, {k: float(v) for k, v in tm.items()}, tg,
             interop.tree_leaves(interop.tree_to_numpy(tstate.params)))
+
+
+# The JAX side of the module's step comparisons (`_jax_step`): its trace and
+# compile take ~20 s a step variant on one thread, so JAX_STEP_PROCESSES
+# worker processes compute them from the module's first test on, while the
+# other tests run; each variant under its own switches, as its test sets
+# them: (float32 switches, ONEHOT_VARIANT "classic", patch, sampling).
+JAX_STEPS = {
+    "bf16": (False, False, 1, None),
+    "f32": (True, False, 1, None),
+    "classic": (True, True, 1, None),
+    "patch_2x8": (True, False, (2, 8), None),
+    "uniform": (True, False, 1, dict(num_steps=COARSE + FINE)),
+    "uniform_patch_2x8": (True, False, (2, 8), dict(num_steps=COARSE + FINE)),
+}
+JAX_STEP_PROCESSES = 3
+JAX_STEP_TIMEOUT = 900         # s, a variant's wait for its result
+
+
+def _jax_step_worker(scale, cache, frame, jparams, name):
+    """In a worker process: the JAX step `name` under its switches."""
+    import conftest  # noqa: F401  (the JAX CPU platform, as in the tests' process)
+
+    f32, classic, patch, sampling = JAX_STEPS[name]
+    try:
+        with pytest.MonkeyPatch.context() as m:
+            if f32:
+                _f32_everywhere(m)
+            if classic:
+                m.setattr(jho, "ONEHOT_VARIANT", "classic")
+            return _jax_step(jl.LiDAR4DField(_configs(scale)[0]), jparams, scale, cache, frame,
+                             patch=patch, sampling=sampling)
+    finally:
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_steps(scene, fields):
+    """{variant: the future of its JAX step}, computed by a pool of
+    JAX_STEP_PROCESSES spawned workers from the module's first test on; a
+    test takes its variant's result with `.result(JAX_STEP_TIMEOUT)`."""
+    args = (scene["scale"], scene["cache"], scene["ds"].frame(1), fields[2])
+    pool = ProcessPoolExecutor(JAX_STEP_PROCESSES, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield {name: pool.submit(_jax_step_worker, *args, name) for name in JAX_STEPS}
+    finally:
+        pool.shutdown(cancel_futures=True)
 
 
 def _check_step(result, jparams, labels, tol, grad_tols):
@@ -522,112 +599,7 @@ def _check_step(result, jparams, labels, tol, grad_tols):
     assert live >= 10
 
 
-def test_train_step_matches_jax_bf16(scene, fields):
-    """Both packages' own bfloat16 MLPs and the reference's bf16 dynamic
-    planes: bf16-level agreement."""
-    jf, tf, jparams = fields
-    result = _run_both(scene, fields)
-    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
-                BF16_TOL, {None: BF16_GRAD_TOL, "flow": BF16_FLOW_GRAD_TOL})
-
-
-def _f32_plane_linear(grid, x, coord_grad_lead=0):
-    """Explicit float32 lerp with the reference plane_linear's contract
-    (no coordinate gradient for the first coord_grad_lead tables)."""
-    lead = min(coord_grad_lead, grid.shape[0])
-    x = jnp.concatenate([jax.lax.stop_gradient(x[:lead]), x[lead:]], axis=0)
-    p, c, w = grid.shape
-    u = jnp.clip(x, 0.0, 1.0) * (w - 1)
-    j0 = jnp.clip(jnp.floor(u).astype(jnp.int32), 0, w - 1)
-    j1 = jnp.minimum(j0 + 1, w - 1)
-    f = (u - j0.astype(jnp.float32))[..., None]
-    g0 = jnp.take_along_axis(grid, j0[:, None, :], axis=2).transpose(0, 2, 1)
-    g1 = jnp.take_along_axis(grid, j1[:, None, :], axis=2).transpose(0, 2, 1)
-    return (1.0 - f) * g0 + f * g1
-
-
-def _f32_everywhere(monkeypatch):
-    """The reference's plane_linear swapped for a float32 lerp and both
-    packages' MLPs in float32."""
-    monkeypatch.setattr(jplanes_mod, "plane_linear", _f32_plane_linear)
-    j32 = functools.partial(jmlp.apply_mlp, dtype=jnp.float32)
-    monkeypatch.setattr(jlidar_mod, "apply_mlp", j32)
-    monkeypatch.setattr(jflow_mod, "apply_mlp", j32)
-    t32 = functools.partial(tmlp.apply_mlp, dtype=torch.float32)
-    monkeypatch.setattr(tlidar_mod, "apply_mlp", t32)
-    monkeypatch.setattr(tflow_mod, "apply_mlp", t32)
-
-
-def test_train_step_matches_jax_classic(scene, fields, monkeypatch):
-    """The step under ONEHOT_VARIANT = "classic" in both packages, float32 as
-    in test_train_step_matches_jax_f32 and at its tolerances: every hash
-    encode runs `hash_encode_onehot` at the table's own F (the dynamic
-    planes one call per variant, the flow grid encoding before interpT), and
-    no encode folds interpT into a table."""
-    jf, tf, jparams = fields
-    _f32_everywhere(monkeypatch)
-    monkeypatch.setattr(jho, "ONEHOT_VARIANT", "classic")
-    monkeypatch.setattr(tho, "ONEHOT_VARIANT", "classic")
-    onehot, folds = [], []
-    fns = {name: getattr(mod, name) for mod, name in (
-        (tho, "hash_encode_onehot"), (tho, "hash_encode_folded"),
-        (thash_mod, "hash_encode_fact_multi_folded"))}
-    monkeypatch.setattr(tho, "hash_encode_onehot", lambda *a: (
-        onehot.append(a[0]), fns["hash_encode_onehot"](*a))[1])
-    monkeypatch.setattr(tho, "hash_encode_folded", lambda *a: (
-        folds.append(a[0]), fns["hash_encode_folded"](*a))[1])
-    monkeypatch.setattr(thash_mod, "hash_encode_fact_multi_folded", lambda *a: (
-        folds.append(a[0]), fns["hash_encode_fact_multi_folded"](*a))[1])
-    try:
-        result = _run_both(scene, fields)
-    finally:
-        jax.clear_caches()
-    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
-                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
-                          "raydrop": F32_ATTR_GRAD_TOL})
-    # per loss: 2 density calls x (static + 3 planes x 3 variants + flow grid)
-    # + the flow loss's 2 flow-net calls; the step's loss runs twice
-    assert not folds and len(onehot) == 2 * (2 * (1 + 9 + 1) + 2)
-    assert {spec.n_features for spec in onehot} == {8}
-
-
-def test_train_step_matches_jax_f32(scene, fields, monkeypatch):
-    """The reference's plane_linear swapped for a float32 lerp and both
-    packages' MLPs in float32: float32-level agreement of the loss, every
-    metric, every gradient leaf and the post-step parameters. The JAX step
-    is traced afresh under the patch and the caches are cleared after."""
-    jf, tf, jparams = fields
-    _f32_everywhere(monkeypatch)
-    try:
-        result = _run_both(scene, fields)
-    finally:
-        jax.clear_caches()
-    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
-                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
-                          "raydrop": F32_ATTR_GRAD_TOL})
-
-
-@pytest.mark.parametrize("mode", ["patch_2x8", "uniform", "uniform_patch_2x8"])
-def test_train_step_other_modes_match_jax_f32(scene, fields, monkeypatch, mode):
-    """The trainer's other step variants, float32 as in
-    test_train_step_matches_jax_f32 and at its tolerances: overlapped 2 x 8
-    patches with the patch gradient loss (hierarchical sampling, the
-    trainer's even epochs), the uniform sampler of the hierarchical warm-up
-    (num_steps = COARSE + FINE), and both at once."""
-    jf, tf, jparams = fields
-    _f32_everywhere(monkeypatch)
-    patch = (2, 8) if "patch" in mode else 1
-    sampling = dict(num_steps=COARSE + FINE) if "uniform" in mode else None
-    try:
-        result = _run_both(scene, fields, patch=patch, sampling=sampling)
-    finally:
-        jax.clear_caches()
-    assert ("grad_loss" in result[0]) == (patch != 1)
-    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
-                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
-                          "raydrop": F32_ATTR_GRAD_TOL})
-
-
+# the tests that need no JAX step first, while the jax_steps workers run
 def test_train_step_draws_its_own_and_trains(scene, fields):
     """Without injected draws the step draws from its generators, stays
     finite over 3 steps, and the same seed repeats the same losses."""
@@ -675,3 +647,111 @@ def test_render_rays_perturbed_matches_jax(fields):
     tz = tr.sample_pdf(torch.from_numpy(z), torch.from_numpy(w), 20,
                        torch.from_numpy(np.array(jax.random.uniform(k2, (RAYS, 20)))))
     np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=1e-5, atol=0)
+
+
+def test_train_step_matches_jax_bf16(scene, fields, jax_steps):
+    """Both packages' own bfloat16 MLPs and the reference's bf16 dynamic
+    planes: bf16-level agreement."""
+    jf, tf, jparams = fields
+    result = _run_both(scene, fields, jax_result=jax_steps["bf16"].result(JAX_STEP_TIMEOUT))
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                BF16_TOL, {None: BF16_GRAD_TOL, "flow": BF16_FLOW_GRAD_TOL})
+
+
+def _f32_plane_linear(grid, x, coord_grad_lead=0):
+    """Explicit float32 lerp with the reference plane_linear's contract
+    (no coordinate gradient for the first coord_grad_lead tables)."""
+    lead = min(coord_grad_lead, grid.shape[0])
+    x = jnp.concatenate([jax.lax.stop_gradient(x[:lead]), x[lead:]], axis=0)
+    p, c, w = grid.shape
+    u = jnp.clip(x, 0.0, 1.0) * (w - 1)
+    j0 = jnp.clip(jnp.floor(u).astype(jnp.int32), 0, w - 1)
+    j1 = jnp.minimum(j0 + 1, w - 1)
+    f = (u - j0.astype(jnp.float32))[..., None]
+    g0 = jnp.take_along_axis(grid, j0[:, None, :], axis=2).transpose(0, 2, 1)
+    g1 = jnp.take_along_axis(grid, j1[:, None, :], axis=2).transpose(0, 2, 1)
+    return (1.0 - f) * g0 + f * g1
+
+
+def _f32_everywhere(monkeypatch):
+    """The reference's plane_linear swapped for a float32 lerp and both
+    packages' MLPs in float32."""
+    monkeypatch.setattr(jplanes_mod, "plane_linear", _f32_plane_linear)
+    j32 = functools.partial(jmlp.apply_mlp, dtype=jnp.float32)
+    monkeypatch.setattr(jlidar_mod, "apply_mlp", j32)
+    monkeypatch.setattr(jflow_mod, "apply_mlp", j32)
+    t32 = functools.partial(tmlp.apply_mlp, dtype=torch.float32)
+    monkeypatch.setattr(tlidar_mod, "apply_mlp", t32)
+    monkeypatch.setattr(tflow_mod, "apply_mlp", t32)
+
+
+def test_train_step_matches_jax_classic(scene, fields, jax_steps, monkeypatch):
+    """The step under ONEHOT_VARIANT = "classic" in both packages, float32 as
+    in test_train_step_matches_jax_f32 and at its tolerances: every hash
+    encode runs `hash_encode_onehot` at the table's own F (the dynamic
+    planes one call per variant, the flow grid encoding before interpT), and
+    no encode folds interpT into a table."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
+    monkeypatch.setattr(jho, "ONEHOT_VARIANT", "classic")
+    monkeypatch.setattr(tho, "ONEHOT_VARIANT", "classic")
+    onehot, folds = [], []
+    fns = {name: getattr(mod, name) for mod, name in (
+        (tho, "hash_encode_onehot"), (tho, "hash_encode_folded"),
+        (thash_mod, "hash_encode_fact_multi_folded"))}
+    monkeypatch.setattr(tho, "hash_encode_onehot", lambda *a: (
+        onehot.append(a[0]), fns["hash_encode_onehot"](*a))[1])
+    monkeypatch.setattr(tho, "hash_encode_folded", lambda *a: (
+        folds.append(a[0]), fns["hash_encode_folded"](*a))[1])
+    monkeypatch.setattr(thash_mod, "hash_encode_fact_multi_folded", lambda *a: (
+        folds.append(a[0]), fns["hash_encode_fact_multi_folded"](*a))[1])
+    try:
+        result = _run_both(scene, fields, jax_result=jax_steps["classic"].result(JAX_STEP_TIMEOUT))
+    finally:
+        jax.clear_caches()
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
+                          "raydrop": F32_ATTR_GRAD_TOL})
+    # per loss: 2 density calls x (static + 3 planes x 3 variants + flow grid)
+    # + the flow loss's 2 flow-net calls; the step's loss runs twice
+    assert not folds and len(onehot) == 2 * (2 * (1 + 9 + 1) + 2)
+    assert {spec.n_features for spec in onehot} == {8}
+
+
+def test_train_step_matches_jax_f32(scene, fields, jax_steps, monkeypatch):
+    """The reference's plane_linear swapped for a float32 lerp and both
+    packages' MLPs in float32: float32-level agreement of the loss, every
+    metric, every gradient leaf and the post-step parameters. The JAX step
+    runs under the same switches in a `jax_steps` worker; this process's
+    caches are cleared after."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
+    try:
+        result = _run_both(scene, fields, jax_result=jax_steps["f32"].result(JAX_STEP_TIMEOUT))
+    finally:
+        jax.clear_caches()
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
+                          "raydrop": F32_ATTR_GRAD_TOL})
+
+
+@pytest.mark.parametrize("mode", ["patch_2x8", "uniform", "uniform_patch_2x8"])
+def test_train_step_other_modes_match_jax_f32(scene, fields, jax_steps, monkeypatch, mode):
+    """The trainer's other step variants, float32 as in
+    test_train_step_matches_jax_f32 and at its tolerances: overlapped 2 x 8
+    patches with the patch gradient loss (hierarchical sampling, the
+    trainer's even epochs), the uniform sampler of the hierarchical warm-up
+    (num_steps = COARSE + FINE), and both at once."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
+    patch = (2, 8) if "patch" in mode else 1
+    sampling = dict(num_steps=COARSE + FINE) if "uniform" in mode else None
+    try:
+        result = _run_both(scene, fields, patch=patch, sampling=sampling,
+                           jax_result=jax_steps[mode].result(JAX_STEP_TIMEOUT))
+    finally:
+        jax.clear_caches()
+    assert ("grad_loss" in result[0]) == (patch != 1)
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
+                          "raydrop": F32_ATTR_GRAD_TOL})

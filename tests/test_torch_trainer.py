@@ -36,6 +36,9 @@ from lidar4d_tpu_torch.ops import mlp
 from lidar4d_tpu_torch.train import trainer as trainer_mod
 from lidar4d_tpu_torch.train.checkpoints import CheckpointManager
 from lidar4d_tpu_torch.train.trainer import Trainer
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 H, W, FRAMES, SEQ = 32, 64, 6, "9000"
 TINY = ["--num_rays_lidar", "64", "--num_steps", "24", "--num_coarse", "8", "--num_fine", "16",

@@ -44,6 +44,9 @@ from lidar4d_tpu_torch.models import flow_field as tflow_mod
 from lidar4d_tpu_torch.models import lidar4d as tlidar_mod
 from lidar4d_tpu_torch.ops import mlp as tmlp
 from lidar4d_tpu_torch.train import trainer as ttrainer_mod
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 EPOCH_LOSS_RTOL = 1e-5
 MOVE_COS = 1 - 1e-6
@@ -91,6 +94,9 @@ def _options(argv):
 
 def _trainers(jopt, topt, jws, tws, j_meters=(), t_meters=(), **kw):
     jfield = jlidar_mod.LiDAR4DField(jconfig.build_model_config(jopt))
+    # the JAX trainer's initial parameters in one compile (the same values
+    # as drawn op by op)
+    object.__setattr__(jfield, "init", jax.jit(jfield.init))   # a frozen dataclass
     tfield = tlidar_mod.LiDAR4DField(tconfig.build_model_config(topt), device="cpu")
     jt = jtrainer_mod.Trainer("lidar4d", jopt, jfield, jconfig.build_loss_config(jopt),
                               workspace=jws, lidar_metrics=list(j_meters),

@@ -53,6 +53,9 @@ from lidar4d_tpu_torch.data.synthetic import generate_synthetic_sequence
 from lidar4d_tpu_torch.models import flow_field as tflow_mod
 from lidar4d_tpu_torch.models import lidar4d as tlidar_mod
 from lidar4d_tpu_torch.ops import mlp as tmlp
+from torch_threads import limit_under_xdist
+
+limit_under_xdist()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "workspace", "smoke", "checkpoints", "lidar4d_ep0020_refine")
@@ -198,16 +201,7 @@ def test_evaluate_on_tracked_checkpoint_matches_jax(tmp_path, f32):
                 pkg.DepthMeter(scale=jopt.scale, **dev),
                 pkg.PointsMeter(scale=jopt.scale, intrinsics=jopt.fov_lidar, **dev)]
 
-    jfield = jlidar_mod.LiDAR4DField(jconfig.build_model_config(jopt))
-    jt = jtrainer_mod.Trainer("lidar4d", jopt, jfield, jconfig.build_loss_config(jopt),
-                              workspace=str(tmp_path / "jws"), lidar_metrics=meters(jmeters),
-                              use_checkpoint=FIXTURE)
-    assert jt.epoch == 20 and jt._refine_trained
-    j_frames = []
-    _record_frames(jt, j_frames)
-    jt.evaluate(jds)
-    assert jt.use_refine and len(j_frames) == 2
-
+    # the port's evaluation runs in its process while the JAX trainer evaluates
     raw = _jax_checkpoint(FIXTURE)
     tfield = tlidar_mod.LiDAR4DField(tconfig.build_model_config(topt), device="cpu")
     spec = {"argv": argv, "ws": str(tmp_path / "tws"), "epoch": int(raw["epoch"]),
@@ -215,8 +209,23 @@ def test_evaluate_on_tracked_checkpoint_matches_jax(tmp_path, f32):
     torch.save(interop.params_from_jax(tfield, raw["params"]), spec["params"])
     with open(tmp_path / "spec.json", "w") as f:
         json.dump(spec, f)
-    subprocess.run([sys.executable, "-c", PORT_EVAL, str(tmp_path / "spec.json")], cwd=ROOT,
-                   check=True, timeout=600)
+    port = subprocess.Popen([sys.executable, "-c", PORT_EVAL, str(tmp_path / "spec.json")],
+                            cwd=ROOT)
+    try:
+        jfield = jlidar_mod.LiDAR4DField(jconfig.build_model_config(jopt))
+        # the initial parameters, which the checkpoint replaces, in one compile
+        object.__setattr__(jfield, "init", jax.jit(jfield.init))   # a frozen dataclass
+        jt = jtrainer_mod.Trainer("lidar4d", jopt, jfield, jconfig.build_loss_config(jopt),
+                                  workspace=str(tmp_path / "jws"),
+                                  lidar_metrics=meters(jmeters), use_checkpoint=FIXTURE)
+        assert jt.epoch == 20 and jt._refine_trained
+        j_frames = []
+        _record_frames(jt, j_frames)
+        jt.evaluate(jds)
+        assert jt.use_refine and len(j_frames) == 2
+        assert port.wait(timeout=600) == 0
+    finally:
+        port.kill()
     out = np.load(spec["out"])
     t_frames = [{"render": list(r), "refined": p} for r, p in zip(out["render"], out["refined"])]
     assert len(t_frames) == len(tds) == 2
