@@ -94,6 +94,13 @@ def init_hash_table(rng: np.random.Generator, spec: HashEncoderSpec, n_grids: in
     return rng.uniform(-scale, scale, shape).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def _corner_bits(n_dims: int, device: torch.device):
+    """[2^d, d] int64: bit k of corner c, the corner's offset along axis k."""
+    return torch.tensor([[(c >> k) & 1 for k in range(n_dims)] for c in range(1 << n_dims)],
+                        dtype=torch.int64, device=device)
+
+
 def _level_indices(spec: HashEncoderSpec, x, level: int):
     """Corner rows + interpolation weights for one level.
 
@@ -107,34 +114,27 @@ def _level_indices(spec: HashEncoderSpec, x, level: int):
     res = spec.resolutions[level]
     size = spec.table_sizes[level]
     off = spec.level_offsets[level]
-    dense = size == (res + 1) ** d
+    bits = _corner_bits(d, x.device)
 
     pos = x.float() * res
     x0f = torch.floor(pos)
     frac = pos - x0f
-    x0 = x0f.to(torch.int64)
-
-    idxs, wgts = [], []
-    for corner in range(1 << d):
-        bits = [(corner >> k) & 1 for k in range(d)]
-        cpos = torch.clamp(x0 + torch.tensor(bits, dtype=torch.int64, device=x.device), 0, res)
-        if dense:
-            stride = 1
-            flat = torch.zeros_like(cpos[:, 0])
-            for k in range(d):
-                flat = flat + cpos[:, k] * stride
-                stride *= res + 1
-        else:
-            acc = cpos[:, 0] * _PRIMES[0]
-            for k in range(1, d):
-                acc = torch.bitwise_xor(acc, cpos[:, k] * _PRIMES[k])
-            flat = acc & (size - 1)
-        w = torch.ones_like(frac[:, 0])
-        for k in range(d):
-            w = w * (frac[:, k] if bits[k] else 1.0 - frac[:, k])
-        idxs.append(off + flat)
-        wgts.append(w)
-    return torch.stack(idxs), torch.stack(wgts)
+    cpos = torch.clamp(x0f.to(torch.int64)[None] + bits[:, None], 0, res)   # [C, N, d]
+    if size == (res + 1) ** d:
+        flat, stride = cpos[..., 0], 1
+        for k in range(1, d):
+            stride *= res + 1
+            flat = flat + cpos[..., k] * stride
+    else:
+        acc = cpos[..., 0] * _PRIMES[0]
+        for k in range(1, d):
+            acc = torch.bitwise_xor(acc, cpos[..., k] * _PRIMES[k])
+        flat = acc & (size - 1)
+    w = torch.where(bits[:, None].bool(), frac[None], 1.0 - frac[None])     # [C, N, d]
+    wgt = w[..., 0]
+    for k in range(1, d):
+        wgt = wgt * w[..., k]
+    return off + flat, wgt
 
 
 def _all_indices(spec: HashEncoderSpec, x):

@@ -45,6 +45,7 @@ import torch
 from lidar4d_tpu_torch.ops import _cuda
 from lidar4d_tpu_torch.ops.hash_enc import (
     HashEncoderSpec,
+    _all_indices,
     hash_encode,
     lagrange_time_interp,
     lagrange_weights,
@@ -448,3 +449,73 @@ def hash_encode_interp_auto(spec: HashEncoderSpec, table, x, t, num_basis,
         return hash_encode_folded(spec, table, x, w)
     g = hash_encode_auto(spec, table, x, coord_grad=coord_grad)
     return lagrange_time_interp(g, t, spec.n_levels, spec.n_features, num_basis)
+
+
+# ------------------------------------------------- the TPU kernels' numerics
+#
+# Plain versions of what the reference's Pallas kernels compute on the TPU,
+# witnesses of whether that arithmetic moves a run's quality and never the
+# main path: nothing here is called unless a caller swaps them in for the
+# kernel wrappers (`chip_smoke.tpu_numerics`). The factorized backward
+# (`_bwd_kernel_fact`, `_bwd_kernel_fact_grouped`) multiplies bfloat16 corner
+# weights by the bfloat16 cotangent on the MXU and accumulates in float32.
+# The factorized forward (`_fwd_call_fact`, `_fwd_call_fact_grouped`) takes
+# its gather form where the packed table's HI * F rows fill 8-row groups and
+# F divides 8, and there looks rows up in exact float32; its one-hot form
+# rounds the table and the weights to bfloat16. A product of two bfloat16
+# values is exact in float32, so the twins form the same products and add
+# them in float32 (in another order than the MXU: ~1 float32 ulp).
+
+TPU_CHUNK = 1 << 18                 # points whose corners of every level are held at once
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def tpu_fwd_gathers(spec: HashEncoderSpec):
+    """Whether the TPU's factorized forward at this spec is its exact
+    float32 gather form (else the bfloat16 one-hot form)."""
+    hf = -(-max(spec.table_sizes) // 128) * spec.n_features
+    return hf % 8 == 0 and 8 % spec.n_features == 0
+
+
+def _chunks(n):
+    return [(s, min(s + TPU_CHUNK, n)) for s in range(0, n, TPU_CHUNK)]
+
+
+def hash_grid_fwd_tpu(spec: HashEncoderSpec, tables, xs):
+    """`hash_grid_fwd` as the TPU computes it: [V, rows, F], [V, N, d] ->
+    [V, N, L*F]. Exact float32 where the TPU gathers (`tpu_fwd_gathers`),
+    else the table and the corner weights rounded to bfloat16, their
+    products added in float32."""
+    v, n, _ = xs.shape
+    f = spec.n_features
+    one_hot = not tpu_fwd_gathers(spec)
+    out = torch.empty((v, n, spec.n_levels, f), dtype=torch.float32, device=xs.device)
+    for vi in range(v):
+        table = _bf16(tables[vi]) if one_hot else tables[vi]
+        for s, e in _chunks(n):
+            idx, w = _all_indices(spec, xs[vi, s:e])
+            if one_hot:
+                w = _bf16(w)
+            out[vi, s:e] = torch.sum(table[idx] * w[..., None], dim=1).transpose(0, 1)
+    return out.reshape(v, n, spec.n_levels * f)
+
+
+def hash_grid_bwd_tpu(spec: HashEncoderSpec, xs, cot, n_tables=None):
+    """`hash_grid_bwd` as the TPU computes it (`_bwd_kernel_fact`,
+    `_bwd_kernel_fact_grouped`): every corner's bfloat16 weight times the
+    bfloat16 cotangent, scattered into a float32 gradient. Returns
+    [n_tables, rows, F]."""
+    v, n, _ = xs.shape
+    f = spec.n_features
+    n_tables = v if n_tables is None else n_tables
+    dtab = torch.zeros((n_tables, spec.n_rows, f), dtype=torch.float32, device=xs.device)
+    cot = _bf16(cot.reshape(v, n, spec.n_levels, f))
+    for vi in range(v):
+        for s, e in _chunks(n):
+            idx, w = _all_indices(spec, xs[vi, s:e])
+            upd = _bf16(w)[..., None] * cot[vi, s:e].transpose(0, 1)[:, None]  # [L, C, n, F]
+            dtab[vi].index_add_(0, idx.reshape(-1), upd.reshape(-1, f))
+    return dtab

@@ -354,9 +354,22 @@ def plane_linear_plain(grid, x):
     return (1.0 - f) * g0 + f * g1
 
 
-# The reference's name for its pure-XLA `plane_linear`, which is a one-hot
-# bfloat16 matmul; the port's is the exact float32 lerp.
-plane_linear_ref = plane_linear_plain
+def plane_linear_ref(grid, x):
+    """The reference's pure-XLA `plane_linear_ref`: the tent 2-hot
+    relu(1 - |iota - u|) rounded to bfloat16 times the bfloat16 table,
+    [P, C, W], [P, N] -> [P, N, C]. The products of bfloat16 values are
+    exact and at most two per output are nonzero, so the float64 matmul
+    rounded to float32 is the float32-accumulated matmul (and no TF32
+    setting reaches it); autograd differentiates it in grid and x, through
+    the tent. A witness: `plane_linear_plain` is the exact float32 lerp the
+    main path's kernel is held to."""
+    w = grid.shape[2]
+    u = torch.clamp(x, 0.0, 1.0) * (w - 1)
+    iota = torch.arange(w, dtype=torch.float32, device=x.device)
+    oh = torch.clamp(1.0 - torch.abs(iota[None, None, :] - u[..., None]), min=0.0)
+    g = grid.to(torch.bfloat16).to(torch.float64)
+    return torch.matmul(oh.to(torch.bfloat16).to(torch.float64),
+                        g.transpose(1, 2)).to(torch.float32)
 
 
 def plane_linear_fwd(grid, x):
@@ -461,3 +474,117 @@ def plane_linear(grid, x, coord_grad_lead=0):
     in grid and x; the first `coord_grad_lead` tables get a zero x gradient
     (their coordinates are raw ray positions) and skip that work."""
     return _PlaneLinear.apply(grid, x, coord_grad_lead)
+
+
+# ------------------------------------------------- the TPU kernels' numerics
+#
+# Plain versions of what the reference's Pallas kernels compute on the TPU,
+# witnesses of whether that arithmetic moves a run's quality and never the
+# main path (`chip_smoke.tpu_numerics` swaps them in). The kernels build
+# the align_corners tents relu(1 - |s - u|) in float32 and round them,
+# the planes and the cotangents to bfloat16 for the MXU, which accumulates
+# in float32. A tent has two nonzero taps, at s0 = floor(u) and s0 + 1
+# (zero when u is an integer); the twins take those two, form the same
+# exact products and add them in float32.
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _taps(u, size):
+    """The two tent taps at u in [0, size - 1]: columns s0 (clamped into the
+    table) and s1 = min(s0 + 1, size - 1), and their float32 tents, the
+    second zero wherever s0 + 1 is past the table (u = size - 1)."""
+    s0f = torch.floor(u)
+    t0 = torch.clamp(1.0 - torch.abs(s0f - u), min=0.0)
+    t1 = torch.clamp(1.0 - torch.abs(s0f + 1.0 - u), min=0.0)
+    s0 = torch.clamp(s0f.to(torch.int64), 0, size - 1)
+    s1 = torch.clamp(s0 + 1, max=size - 1)
+    return s0, s1, t0, t1
+
+
+def _bilinear_taps(pts, h, w):
+    u = torch.clamp(pts[..., 0], 0.0, 1.0) * (w - 1)
+    v = torch.clamp(pts[..., 1], 0.0, 1.0) * (h - 1)
+    return _taps(u, w), _taps(v, h)
+
+
+def plane_bilinear_tpu(grid, pts):
+    """`plane_bilinear_fwd` as the TPU computes it (`_fwd_kernel`): the
+    bfloat16 plane times the bfloat16 x tents on the MXU (float32 sums),
+    then times the bfloat16 y tents in float32. [P, C, H, W], [P, N, 2] ->
+    [P, C, N]."""
+    p, c, h, w = grid.shape
+    (x0, x1, tx0, tx1), (y0, y1, ty0, ty1) = _bilinear_taps(pts, h, w)
+    flat = _bf16(grid).reshape(p, c, h * w)
+
+    def row(y):
+        def at(x):
+            return torch.gather(flat, 2, (y * w + x)[:, None, :].expand(-1, c, -1))
+        return at(x0) * _bf16(tx0)[:, None] + at(x1) * _bf16(tx1)[:, None]
+
+    return row(y0) * _bf16(ty0)[:, None] + row(y1) * _bf16(ty1)[:, None]
+
+
+def plane_bilinear_bwd_tpu(pts, cot, hw):
+    """`plane_bilinear_bwd` as the TPU computes it (`_bwd_kernel_tables`):
+    bf16(bf16(y tent) * cot) times the bfloat16 x tent, accumulated in a
+    float32 gradient. Returns [P, C, H, W]."""
+    p, c, _ = cot.shape
+    h, w = hw
+    (x0, x1, tx0, tx1), (y0, y1, ty0, ty1) = _bilinear_taps(pts, h, w)
+    dflat = torch.zeros((p, c, h * w), dtype=torch.float32, device=cot.device)
+    for y, ty in ((y0, ty0), (y1, ty1)):
+        a = _bf16(_bf16(ty)[:, None] * cot)                               # [P, C, N]
+        for x, tx in ((x0, tx0), (x1, tx1)):
+            dflat.scatter_add_(2, (y * w + x)[:, None, :].expand(-1, c, -1),
+                               a * _bf16(tx)[:, None])
+    return dflat.reshape(p, c, h, w)
+
+
+def tpu_linear_gathers(c, w):
+    """Whether the TPU's `plane_linear` forward at C channels and W columns
+    is its exact float32 gather form (`_lin_fwd_kernel_gather`: C = 8 and
+    one 128-lane row), else the bfloat16 tent matmul (`_lin_fwd_kernel`)."""
+    return c == 8 and w <= 128
+
+
+def plane_linear_tpu(grid, x):
+    """`plane_linear_fwd` as the TPU computes it: the exact float32 lerp
+    where the TPU gathers (`tpu_linear_gathers`), else the bfloat16 table
+    times the bfloat16 tents, added in float32. [P, C, W], [P, N] ->
+    [P, N, C]."""
+    p, c, w = grid.shape
+    if tpu_linear_gathers(c, w):
+        return plane_linear_plain(grid, x)
+    s0, s1, t0, t1 = _taps(torch.clamp(x, 0.0, 1.0) * (w - 1), w)
+    gt = _bf16(grid).transpose(1, 2)                                     # [P, W, C]
+    g0 = torch.gather(gt, 1, s0[:, :, None].expand(-1, -1, c))
+    g1 = torch.gather(gt, 1, s1[:, :, None].expand(-1, -1, c))
+    return g0 * _bf16(t0)[..., None] + g1 * _bf16(t1)[..., None]
+
+
+def plane_linear_bwd_tpu(grid, x, cot, lead=0):
+    """`plane_linear_bwd` as the TPU computes it (`_lin_bwd_kernel`): the
+    table gradient sums bfloat16 cotangents times bfloat16 tents in float32;
+    the coordinate gradient contracts bf16(grid) with bf16(cot) over C in
+    float32 at both taps, signed by the tents' derivative (-1 at s0 where u
+    is past it, +1 at s0 + 1 where its tent is positive), times (W - 1)
+    inside [0, 1]; zero for the first `lead` tables. Returns (dG, dx)."""
+    p, c, w = grid.shape
+    u = torch.clamp(x, 0.0, 1.0) * (w - 1)
+    s0, s1, t0, t1 = _taps(u, w)
+    cot_b = _bf16(cot)                                                   # [P, N, C]
+    dgt = torch.zeros((p, w, c), dtype=torch.float32, device=x.device)
+    dgt.scatter_add_(1, s0[:, :, None].expand(-1, -1, c), cot_b * _bf16(t0)[..., None])
+    dgt.scatter_add_(1, s1[:, :, None].expand(-1, -1, c), cot_b * _bf16(t1)[..., None])
+    gt = _bf16(grid).transpose(1, 2)
+    m0 = torch.sum(torch.gather(gt, 1, s0[:, :, None].expand(-1, -1, c)) * cot_b, dim=2)
+    m1 = torch.sum(torch.gather(gt, 1, s1[:, :, None].expand(-1, -1, c)) * cot_b, dim=2)
+    dt = (torch.where(t1 > 0.0, m1, 0.0)
+          - torch.where(u > torch.floor(u), m0, 0.0))
+    in_rng = ((x >= 0.0) & (x <= 1.0)).to(torch.float32)
+    dx = dt * (w - 1) * in_rng
+    dx[:lead] = 0.0
+    return dgt.transpose(1, 2).contiguous(), dx

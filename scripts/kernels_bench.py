@@ -179,16 +179,16 @@ def baseline(wrappers):
         yield
 
 
-def rel_err(run, plain):
+def rel_err(run, plain, zero_check=None):
     """Largest relative error over the outputs (each against its own largest
-    magnitude), and whether every exact zero of the plain outputs is one of
-    the kernel's and no other."""
+    magnitude), and what `zero_check` (chip_smoke.vjp_zeros) returns on the
+    last outputs: the float32 cancellations, or None without one."""
     got, want = run(), plain()
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     torch.cuda.synchronize()
     err = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
               for g, w in zip(got, want))
-    return err, torch.equal(got[-1] == 0, want[-1] == 0)
+    return err, zero_check(got[-1], want[-1]) if zero_check else None
 
 
 def train_cases(field, params, ds, cache, opt, dev, classic):
@@ -261,17 +261,20 @@ def encoder_cases(field, params, ds, opt, dev):
                       for c in range(3)]
     print(json.dumps({"flow_shift_mean": shift.mean().item(), "flow_shift_max": shift.max().item(),
                       "cell_change_share": changes}), flush=True)
-    return [(k, f"{x01.shape[0]} pts {label}", run, plain, library, cs.bound_ms(nb, flops)[0])
-            for k, label, run, plain, library, nb, flops in cs.vjp_cases(params, gen, xyz, t)]
+    return [(k, f"{x01.shape[0]} pts {label}", run, plain, library, cs.bound_ms(nb, flops)[0],
+             zeros)
+            for k, label, run, plain, library, nb, flops, zeros
+            in cs.vjp_cases(params, gen, xyz, t)]
 
 
 def run_cases(route, cases, base, sums):
-    for name, label, run, plain, library, bound in cases:
-        err, zeros = rel_err(run, plain)
+    for name, label, run, plain, library, bound, *zero_check in cases:
+        err, cancelled = rel_err(run, plain, *zero_check)
         line = {"route": route, "kernel": name, "case": label, "max_rel": err}
-        if not err <= RTOL[name] or (name == "plane_bilinear_vjp" and not zeros):
-            raise AssertionError(f"{name} {label}: max_rel {err} > {RTOL[name]} or the "
-                                 f"plain version's zeros differ ({zeros})")
+        if cancelled is not None:
+            line["float32_cancellations"] = cancelled
+        if not err <= RTOL[name]:
+            raise AssertionError(f"{name} {label}: max_rel {err} > {RTOL[name]}")
         with baseline(base):
             line["baseline_max_rel"] = rel_err(run, plain)[0]
             b1 = cs.cuda_ms(run, ITERS)

@@ -19,10 +19,12 @@ ct = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ct)
 
 TINY_SCENE = dict(sequence_id="9000", num_frames=6, H=8, W=32, seed=0)
+PHASH111 = ct.RECORDS["conf_phash111"]
+JAX_PHASH111 = ct.jax_dir(PHASH111)
 
 
 def _jax_records():
-    return ct.read_jsonl(ct.JAX_RECORD / "metrics_lidar4d.jsonl")
+    return ct.read_jsonl(JAX_PHASH111 / "metrics_lidar4d.jsonl")
 
 
 def _write_record(path, records, log_lines):
@@ -63,7 +65,7 @@ def test_scene_is_the_benchs():
     kw = {k.arg: consts[k.value.id] if isinstance(k.value, ast.Name)
           else ast.literal_eval(k.value) for k in call.keywords}
     assert kw == ct.SCENE
-    assert float(ct.config_values()["scale"]) == 0.01006991432868821
+    assert float(ct.config_values(ROOT / PHASH111.config)["scale"]) == 0.01006991432868821
 
 
 def test_write_scene_tiny(tmp_path, monkeypatch):
@@ -72,7 +74,7 @@ def test_write_scene_tiny(tmp_path, monkeypatch):
     from lidar4d_tpu_torch.data import synthetic
 
     scale, offset = synthetic.generate_synthetic_sequence(str(tmp_path / "ref"), **TINY_SCENE)
-    got = ct.write_scene(tmp_path / "scene", TINY_SCENE, want_scale=scale)
+    got = ct.write_scene(tmp_path / "scene", scale, TINY_SCENE)
     assert got[:2] == (scale, offset)
     assert (tmp_path / "scene" / "transforms_9000_train.json").exists()
     assert json.loads((tmp_path / "scene" / "meta.json").read_text())["scene"] == TINY_SCENE
@@ -81,19 +83,19 @@ def test_write_scene_tiny(tmp_path, monkeypatch):
         raise AssertionError("the scene was written again")
 
     monkeypatch.setattr(synthetic, "generate_synthetic_sequence", refuse)
-    assert ct.write_scene(tmp_path / "scene", TINY_SCENE, want_scale=scale)[:2] == (scale, offset)
+    assert ct.write_scene(tmp_path / "scene", scale, TINY_SCENE)[:2] == (scale, offset)
     with pytest.raises(ValueError, match="config scale"):
-        ct.write_scene(tmp_path / "scene", TINY_SCENE, want_scale=scale * (1 + 1e-5))
+        ct.write_scene(tmp_path / "scene", scale * (1 + 1e-5), TINY_SCENE)
 
 
 def test_jax_record_reads_and_meets_its_own_checks():
     """The JAX record through the script's readers: its parameter count,
     schedule, refine BCE (log_lidar4d.txt:88-107) and the band."""
-    checks, fails = ct.check_record(ct.JAX_RECORD)
+    checks, fails = ct.check_record(JAX_PHASH111, PHASH111)
     assert all(checks.values()), checks
     assert fails == []
-    n_params, bce = ct.read_log(ct.JAX_RECORD / "log_lidar4d.txt")
-    assert n_params == ct.N_PARAMS
+    n_params, bce = ct.read_log(JAX_PHASH111 / "log_lidar4d.txt")
+    assert n_params == PHASH111.n_params
     assert bce[0] == (0, 0.782084) and bce[-1] == (950, 0.089363) and len(bce) == 20
     rows = ct.eval_rows(_jax_records())
     assert ct.metric(rows[54], "PointsMeter", 0) == pytest.approx(0.16255719, abs=1e-8)
@@ -116,7 +118,7 @@ def test_band_failures(epoch, key, idx, value, miss):
         rows[epoch][key][idx] = value
     elif epoch is not None:
         del rows[epoch]
-    assert ct.band_failures(rows) == miss
+    assert ct.band_failures(rows, ct.BAND) == miss
 
 
 def test_tables_and_checks_of_a_made_up_port_record(tmp_path, capsys):
@@ -135,7 +137,7 @@ def test_tables_and_checks_of_a_made_up_port_record(tmp_path, capsys):
         f"refine iter {i}: raydrop bce {0.5 / (i + 1):.6f}" for i in range(0, 1000, 50)]
     rec = _write_record(tmp_path / "port", port, log)
 
-    checks, fails = ct.report(rec)
+    checks, fails = ct.report(rec, PHASH111)
     lines = capsys.readouterr().out.splitlines()
     assert all(checks.values()) and fails == []
     assert "band: met" in lines
@@ -150,7 +152,7 @@ def test_tables_and_checks_of_a_made_up_port_record(tmp_path, capsys):
     assert bce[0] == [0.5, 0.782084] and bce[950] == pytest.approx([0.5 / 951, 0.089363], abs=1e-6)
 
     short = [r for r in port if r["epoch"] <= 54]
-    checks, fails = ct.check_record(_write_record(tmp_path / "short", short, log[:5]))
+    checks, fails = ct.check_record(_write_record(tmp_path / "short", short, log[:5]), PHASH111)
     assert checks == {"parameters": True, "epochs": False, "evaluations": False,
                       "refine steps": False}
     assert fails == ["no evaluation at epoch 61"]
@@ -184,11 +186,11 @@ def test_committed_port_record(name, seed):
     parameter count and schedule, the unedited config, and the band's
     verdict as the run printed it on the card (converge.json)."""
     rec = ROOT / "runs" / f"torch_conf_phash111_{name}"
-    checks, fails = ct.check_record(rec)
+    checks, fails = ct.check_record(rec, PHASH111)
     assert all(checks.values()), checks
     args = dict(line.split(" = ", 1) for line in (rec / "args.txt").read_text().splitlines())
-    assert (args["config"], args["seed"], args["dataloader"]) == (ct.CONFIG, str(seed),
-                                                                  "synthetic")
+    assert (args["config"], args["seed"], args["dataloader"]) == (
+        PHASH111.config, str(seed), "synthetic")
     summary = json.loads((rec / "converge.json").read_text())
     assert summary["card"].startswith("NVIDIA H100")
     assert summary["checks"] == checks and summary["band_failures"] == fails
@@ -208,7 +210,7 @@ def test_committed_witness_record(name, seed, switch):
     assert sorted(ct.eval_rows(records)) == [27, 54]
     assert sorted(ct.epoch_losses(records))[:54] == list(range(1, 55))
     if switch == "float32_mlps":
-        checks, _ = ct.check_record(rec)
+        checks, _ = ct.check_record(rec, PHASH111)
         assert checks == {"parameters": True, "epochs": True, "evaluations": False,
                           "refine steps": False}
         summary = json.loads((rec / "converge.json").read_text())
@@ -219,4 +221,192 @@ def test_committed_witness_record(name, seed, switch):
         out = (rec / "log_converge.txt").read_text()
         assert out.startswith("card: NVIDIA H100")
         cli = next(line for line in out.splitlines() if line.startswith("CLI: "))
-        assert f"--config {ct.CONFIG} " in cli and cli.endswith(f"--seed {seed} --train_only")
+        assert f"--config {PHASH111.config} " in cli and cli.endswith(f"--seed {seed} --train_only")
+
+
+@pytest.mark.parametrize("name", sorted(ct.RECORDS))
+def test_records_table(name):
+    """Each record's config parses with the port's CLI parser and builds, on
+    the CPU, a field of the JAX log's parameter count (its
+    log_lidar4d.txt:2); the JAX record holds the table's evaluations in
+    order, before and after its refine, and its epochs."""
+    from lidar4d_tpu_torch.cli.config import build_model_config, get_arg_parser
+    from lidar4d_tpu_torch.interop import tree_leaves
+    from lidar4d_tpu_torch.models.lidar4d import LiDAR4DField
+
+    rec = ct.RECORDS[name]
+    opt = get_arg_parser().parse_args(["--config", str(ROOT / rec.config)])
+    params = LiDAR4DField(build_model_config(opt), device="cpu").init(0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    jax_dir = ct.jax_dir(rec)
+    assert ct.read_log(jax_dir / "log_lidar4d.txt")[0] == rec.n_params == n_params
+    checks, fails = ct.check_record(jax_dir, rec)
+    assert all(checks.values()), checks
+    assert fails == []
+    points = ct.eval_points(ct.read_jsonl(jax_dir / "metrics_lidar4d.jsonl"))
+    assert [r["epoch"] for _, r in points] == [*rec.evals, rec.final]
+    assert (rec.band is not None) == (name == "conf_phash111")
+
+
+def _made_up_run(root, name, record, seed, cds, variant="exact", train_only=True):
+    """A record directory holding only what the pooled reading reads: its
+    evaluations (the JAX record's, CD and F moved to `cds`) and converge.json."""
+    rec = ct.RECORDS[record]
+    jax = [r for r in ct.read_jsonl(ct.jax_dir(rec) / "metrics_lidar4d.jsonl")
+           if "valid_loss" in r][:len(rec.evals)]
+    port = copy.deepcopy(jax)
+    for r, (cd, f) in zip(port, cds):
+        r["PointsMeter"][:2] = [cd, f]
+    d = _write_record(root / name, port, [])
+    (d / "converge.json").write_text(json.dumps({
+        "record": record, "seed": seed, "config": rec.config,
+        "tpu_numerics": variant == "tpu", "float32_mlps": False, "plain_kernels": False,
+        "cli_argv": ["--seed", str(seed)] + (["--train_only"] if train_only else [])}))
+    return d
+
+
+def test_pooled_reading_of_made_up_records(tmp_path):
+    """Fixed made-up port records with a known statistic: per record d, s
+    and z = d / (s sqrt(1 + 1/n)), Z = sum z / sqrt(5) for CD and (sign
+    reversed) F, the positive d, the detectable bias, the witness delta and
+    its standard error; reruns are left out and a --train_only run is
+    taken before a whole run of its seed."""
+    offsets = {"flagship_phash211": (0.01, 0.03), "conf_phash111": (0.02, 0.01),
+               "conf_phash112": (-0.01, 0.02), "flagship10k_phash": (0.0, 0.04),
+               "flagship10k_urf": (0.03, 0.02)}
+    spread = (-1.0, 0.0, 1.0, 0.5, -0.5)
+    want_z = []
+    for name, (bias, s) in offsets.items():
+        rec = ct.RECORDS[name]
+        jcd, jf = (ct.jax_endpoint(rec, c) for c in ("CD", "F"))
+        for seed, k in enumerate(spread):
+            cds = [(0.0, 0.0)] * (len(rec.evals) - 1) + [(jcd + bias + k * s,
+                                                          jf - bias + k * s / 2)]
+            _made_up_run(tmp_path, f"torch_{name}_s{seed}", name, seed, cds)
+        values = [bias + k * s for k in spread]
+        m = sum(values) / 5
+        sd = (sum((v - m) ** 2 for v in values) / 4) ** 0.5
+        want_z.append(m / (sd * (1 + 1 / 5) ** 0.5))
+    rec = ct.RECORDS["flagship_phash211"]
+    jcd, jf = ct.jax_endpoint(rec, "CD"), ct.jax_endpoint(rec, "F")
+    # a rerun and a whole run of a seed that has a --train_only run: not counted
+    _made_up_run(tmp_path, "torch_flagship_phash211_s0_again", "flagship_phash211", 0,
+                 [(jcd + 5.0, jf)])
+    _made_up_run(tmp_path, "torch_flagship_phash211_whole_s1", "flagship_phash211", 1,
+                 [(jcd + 5.0, jf)], train_only=False)
+    for seed, v in enumerate((0.02, 0.04, 0.03)):
+        _made_up_run(tmp_path, f"torch_tpu_flagship_phash211_s{seed}", "flagship_phash211",
+                     seed, [(jcd + v, jf)], variant="tpu")
+
+    lines, out = ct.pooled_reading(ct.collect_runs(tmp_path))
+    assert out["n_records"] == 5
+    assert out["Z_CD"] == pytest.approx(sum(want_z) / 5 ** 0.5, rel=1e-9)
+    assert out["Z_F"] == pytest.approx(
+        sum(out["records"][n]["F"]["z"] for n in offsets) / 5 ** 0.5)
+    assert out["records"]["conf_phash112"]["CD"]["d"] == pytest.approx(-0.01, abs=1e-12)
+    assert out["records"]["flagship10k_phash"]["CD"]["z"] == pytest.approx(0.0, abs=1e-9)
+    assert out["positive_d"] == 3
+    assert out["records"]["flagship_phash211"]["n"] == 5
+    spreads = [(out["records"][n]["CD"]["s"], 5) for n in offsets]
+    assert out["detectable_bias_CD"] == pytest.approx(
+        2 * 5 ** 0.5 / sum(1 / (s * 1.2 ** 0.5) for s, _ in spreads))
+    w = out["witness"]["flagship_phash211"]
+    exact = [0.01 + k * 0.03 for k in spread]
+    me = sum(exact) / 5
+    se2 = sum((v - me) ** 2 for v in exact) / 4 / 5 + 0.01 ** 2 / 3
+    assert w["delta"] == pytest.approx(0.03 - me, abs=1e-9)
+    assert w["se"] == pytest.approx(se2 ** 0.5, rel=1e-9)
+    assert out["reading"] == ("the port's CD is biased high" if out["Z_CD"] >= 2 else
+                              "no bias told from the seed spread")
+    assert any(line.startswith("pooled over 5 records") for line in lines)
+
+
+def test_tpu_numerics_flag_swaps_in_the_child(tmp_path, monkeypatch):
+    """`--tpu-numerics` runs the child's CLI with the six wrappers of the
+    eight training-path rows swapped for their bfloat16 twins (and
+    `plane_bilinear_vjp` a kernel), restored after; without it the child
+    runs the wrappers themselves."""
+    import torch
+
+    import chip_smoke
+    from lidar4d_tpu_torch.cli import main_lidar4d
+
+    names = (*chip_smoke.TPU_VERSIONS, "plane_bilinear_vjp")
+    before = {n: getattr(chip_smoke.kernel_module(n), n) for n in names}
+    seen = []
+
+    def fake_main(argv):
+        seen.append({n: getattr(chip_smoke.kernel_module(n), n) for n in names})
+
+    monkeypatch.setattr(main_lidar4d, "main", fake_main)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
+    for flag in (["--tpu-numerics"], []):
+        assert ct.main([*flag, "--child", str(tmp_path / "child.json"), "--", "x"]) == 0
+    twins, plain = seen
+    for n, twin in chip_smoke.TPU_VERSIONS.items():
+        assert twins[n] is getattr(chip_smoke.kernel_module(n), twin)
+    assert twins["plane_bilinear_vjp"] is before["plane_bilinear_vjp"]
+    assert plain == before
+    assert {n: getattr(chip_smoke.kernel_module(n), n) for n in names} == before
+
+
+# per-step launches (converge_torch.KERNELS' order) of a uniform and a
+# hierarchical step on each record's routes; conf_phash111's are its first
+# records'
+STEP_LAUNCHES = {
+    "conf_phash111": [(8, 8, 3, 3, 4, 4, 0), (14, 14, 6, 6, 8, 8, 0)],
+    "conf_phash112": [(8, 8, 3, 3, 4, 4, 0), (14, 14, 6, 6, 8, 8, 0)],
+    "flagship10k_phash": [(8, 8, 3, 3, 4, 4, 0), (14, 14, 6, 6, 8, 8, 0)],
+    "flagship10k_urf": [(7, 7, 4, 4, 4, 4, 0), (12, 12, 8, 8, 8, 8, 0)],
+    "flagship_phash211": [(9, 9, 2, 2, 4, 4, 0), (16, 16, 4, 4, 8, 8, 0)],
+}
+
+
+def test_committed_records_launch_every_kernel_a_step():
+    """Every finished record made on the card: each train epoch's launches
+    are a whole number of uniform or hierarchical steps of its routes (the
+    kernels on the main path, conf_phash111's routes at its first records'
+    counts);
+    under `--tpu-numerics` no kernel launches at all; the configs unedited
+    at the record's seed."""
+    seen = set()
+    for d in sorted((ROOT / "runs").glob("torch_*")):
+        path = d / "converge.json"
+        if not path.exists():
+            continue
+        summary = json.loads(path.read_text())
+        if not summary.get("finished", True) or summary.get("failed"):
+            continue
+        name, variant = summary["record"], ct.run_variant(summary)
+        vecs = ct.step_launches(summary)
+        want = ([(0,) * len(ct.KERNELS)] if variant == "tpu" else
+                [tuple(float(v) for v in w) for w in STEP_LAUNCHES[name]])
+        assert vecs and set(vecs) <= set(want), (d.name, vecs)
+        assert summary["card"].startswith("NVIDIA H100")
+        argv = summary["cli_argv"]
+        assert argv[:2] == ["--config", ct.RECORDS[name].config]
+        assert argv[argv.index("--seed") + 1] == str(summary["seed"])
+        seen.add((name, variant))
+    assert {(n, "exact") for n in ct.RECORDS} | {("flagship_phash211", "tpu")} <= seen
+
+
+def test_committed_pooled_reading():
+    """The pooled reading of the committed records, as PERF.md states it:
+    five records, Z(CD) +0.048, Z(F, reversed) -1.795, three of
+    five d positive, a detectable bias of 0.0279 CD, and the phash211
+    witness delta +0.0009 with a standard error of 0.0128; the phash111
+    witness reached no epoch-54 evaluation."""
+    _, out = ct.pooled_reading(ct.collect_runs(ROOT / "runs"))
+    assert {n: r["n"] for n, r in out["records"].items()} == {
+        "flagship_phash211": 8, "conf_phash111": 6, "conf_phash112": 4,
+        "flagship10k_phash": 4, "flagship10k_urf": 3}
+    assert out["Z_CD"] == pytest.approx(0.0476, abs=5e-4)
+    assert out["Z_F"] == pytest.approx(-1.7952, abs=5e-4)
+    assert out["positive_d"] == 3
+    assert out["detectable_bias_CD"] == pytest.approx(0.0279, abs=5e-4)
+    assert out["reading"] == "no bias told from the seed spread"
+    w = out["witness"]
+    assert set(w) == {"flagship_phash211"}
+    assert w["flagship_phash211"]["delta"] == pytest.approx(0.0009, abs=5e-5)
+    assert w["flagship_phash211"]["se"] == pytest.approx(0.0128, abs=5e-5)
+    assert not w["flagship_phash211"]["moves"]

@@ -157,14 +157,28 @@ def test_plane_bilinear_out_of_range_coordinate_gradient_is_zero():
 
 
 def test_plane_refs_are_the_float32_plain_versions():
+    """`plane_bilinear_ref` is the float32 plain version; `plane_linear_ref`
+    is, like the reference's, the bfloat16 tent matmul (held to the JAX
+    function in tests/test_torch_tpu_numerics.py): the float32 lerp's taps
+    and table rounded to bfloat16, within bfloat16 precision of the plain
+    version, which stays the exact float32 lerp."""
     grid = torch.from_numpy(_uniform(69, (3, 8, 6, 10)))
     pts = torch.from_numpy(_uniform(70, (3, 50, 2), -0.1, 1.1))
     np.testing.assert_array_equal(tpo.plane_bilinear_ref(grid, pts).numpy(),
                                   tpo.plane_bilinear_plain(grid, pts).numpy())
     lin = torch.from_numpy(_uniform(71, (9, 8, 16)))
     x = torch.from_numpy(_uniform(72, (9, 50)))
-    np.testing.assert_array_equal(tpo.plane_linear_ref(lin, x).numpy(),
-                                  tpo.plane_linear_plain(lin, x).numpy())
+    u = x * 15
+    j0 = torch.floor(u)
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)  # noqa: E731
+    gt = bf(lin).transpose(1, 2)
+    g0 = torch.gather(gt, 1, j0.long()[..., None].expand(-1, -1, 8))
+    g1 = torch.gather(gt, 1, (j0.long() + 1).clamp(max=15)[..., None].expand(-1, -1, 8))
+    want = g0 * bf(1.0 - (u - j0))[..., None] + g1 * bf(1.0 - (j0 + 1.0 - u))[..., None]
+    got = tpo.plane_linear_ref(lin, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-7)
+    plain = tpo.plane_linear_plain(lin, x)
+    assert 0 < float((got - plain).abs().max()) < 2.0 ** -7
 
 
 # ------------------------------------------------------------------ Planes4D

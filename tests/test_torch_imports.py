@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(nor do chip_smoke.py and scripts/converge_torch.py), and chip_smoke.py
-refuses to report a result without a GPU or without the package beside it."""
+(nor do chip_smoke.py, scripts/converge_torch.py and
+scripts/diag_floaters_torch.py), and chip_smoke.py refuses to report a
+result without a GPU or without the package beside it."""
 
 import ast
 import json
@@ -19,7 +20,8 @@ LAZY_ONLY = ("cv2", "imageio", "tensorboardX")   # only inside functions that wr
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "scripts" / "converge_torch.py"]
+                                        ROOT / "scripts" / "converge_torch.py",
+                                        ROOT / "scripts" / "diag_floaters_torch.py"]
 
 
 def _imports(tree):
