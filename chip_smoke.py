@@ -31,7 +31,9 @@ Phases (each prints a start line):
   train    one flagship train step on the card against the same step on the
            CPU (O(0.1-1) tables, float32 MLPs, fewer rays): loss, every
            gradient leaf, post-step parameters, once with hierarchical
-           sampling and once with uniform sampling (no sample_pdf, so the
+           sampling, once with hierarchical sampling and the line-of-sight
+           (URF) loss at a step where its band has narrowed (URF_STEP), and
+           once with uniform sampling (no sample_pdf, so the
            gap is the kernels' and the card's float32 rounding alone); then
            2 warm-up and 5 timed flagship steps (1,024 rays, 128 + 256
            samples, flow loss) with their losses, ms/step, train rays/s,
@@ -187,6 +189,8 @@ STEP_GRAD_RTOL = {"flow": 1e-2, "hash": 2e-2, "planes": 3e-2, "sigma": 4e-3,
                   "intensity": 4e-3, "raydrop": 1e-3}
 SIGN_FLOOR = 10                # post-step params compared where |g| > this x tol x max|g|
 UNIFORM_STEPS = 128            # uniform sampling of the checks below
+URF_STEP = 13500               # step / ITERS = 0.45: the URF band's eps decayed, as at
+                               # step 4,469 of the 10k URF run that went non-finite
 # The checks below use uniform sampling and float32 MLPs; tolerances are
 # relative, of the loss and of each gradient leaf by group, about 10x the
 # gaps measured on an H100 (PERF.md). Card vs CPU, uniform sampling: loss
@@ -955,25 +959,28 @@ def onehot_variant(variant):
         ho.ONEHOT_VARIANT = saved
 
 
-def step_grads(field, signal, ds, cache, sampling, draws=None):
+def step_grads(field, signal, ds, cache, sampling, draws=None, urf_step=None):
     """One step's metrics, gradient leaves and post-step leaves (on the host)
     from the numpy params `signal` on the field's device, with `draws` (the
-    step's own when None). Returns (metrics, grads, params, draws)."""
+    step's own when None); with `urf_step` the line-of-sight loss on, at that
+    step count. Returns (metrics, grads, params, draws)."""
     from lidar4d_tpu_torch.interop import tree_leaves, tree_to_torch
     from lidar4d_tpu_torch.train.losses import LossConfig
     from lidar4d_tpu_torch.train.train_step import (
         flow_cache_to_device, init_train_state, make_train_step)
 
     loss_cfg = LossConfig(flow_loss=True, grad_loss=True, scale=ds.scale,
-                          num_frames=field.cfg.num_frames, iters=ITERS)
+                          num_frames=field.cfg.num_frames, iters=ITERS,
+                          urf_loss=urf_step is not None)
     state, optim = init_train_state(field, lr=LR, iters=ITERS,
                                     params=tree_to_torch(signal, field.device))
+    state.step = urf_step or 0
     step = make_train_step(field, optim, loss_cfg, H=ds.H_lidar, W=ds.W_lidar, fov_lidar=FOV,
                            num_rays=CHECK_RAYS, patch_size=1, seed=SEED, **sampling)
     draws = step.draw() if draws is None else draws
     dd = {k: v.to(field.device) if torch.is_tensor(v) else v for k, v in draws.items()}
     grads, metrics = step.grads(state.params, ds.frame(0), flow_cache_to_device(cache, field.device),
-                                dd, 0)
+                                dd, state.step)
     optim.step(state.params, grads, state.opt_state)
     return ({k: float(v) for k, v in metrics.items()},
             [None if g is None else g.cpu() for g in grads],
@@ -1035,8 +1042,9 @@ def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
     """One step of the flagship field on CHECK_RAYS rays from the same
     O(0.1-1) parameters, float32 MLPs and the same draws: the loss, every
     gradient leaf and the post-step parameters of the card's step against
-    the CPU's, with the flagship's hierarchical sampling and with
-    UNIFORM_STEPS uniform samples (no sample_pdf); then, uniform, the card's
+    the CPU's, with the flagship's hierarchical sampling, with it and the
+    line-of-sight loss at URF_STEP, and with UNIFORM_STEPS uniform samples
+    (no sample_pdf); then, uniform, the card's
     step on its plain versions against the CPU's (printed: the same gap
     means the kernels take no part in it) and the card's step on its kernels
     against the same step on its plain versions."""
@@ -1051,6 +1059,13 @@ def check_step_card_vs_cpu(field, params, ds, cache, opt, dev):
         card = step_grads(field, signal, ds, cache, hierarchical, draws=cpu[3])
         compare_steps("card vs cpu", field, signal, card, cpu, STEP_RTOL, STEP_GRAD_RTOL,
                       post_step=True)
+        cpu = step_grads(cpu_field, signal, ds, cache, hierarchical, urf_step=URF_STEP)
+        card = step_grads(field, signal, ds, cache, hierarchical, draws=cpu[3],
+                          urf_step=URF_STEP)
+        if "urf_loss" not in card[0] or "urf_loss" not in cpu[0]:
+            raise AssertionError("the URF step computed no urf_loss")
+        compare_steps(f"card vs cpu, URF loss at step {URF_STEP}", field, signal, card, cpu,
+                      STEP_RTOL, STEP_GRAD_RTOL, post_step=True)
         cpu = step_grads(cpu_field, signal, ds, cache, uniform)
         card = step_grads(field, signal, ds, cache, uniform, draws=cpu[3])
         compare_steps("card vs cpu, uniform sampling", field, signal, card, cpu,

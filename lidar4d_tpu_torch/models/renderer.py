@@ -6,7 +6,11 @@ the chunked full-frame inference renders (under `torch.no_grad()`). The
 reference's TPU rewrites of `sample_pdf`'s lookups (one-hot contraction) and `merge_sorted` (rank
 arithmetic) are proven bitwise-equal to a gather and a stable argsort
 (tests/test_models.py), so this port uses `torch.searchsorted`,
-`torch.gather` and `torch.sort(stable=True)` directly. The reference's
+`torch.gather` and `torch.sort(stable=True)` directly. That holds for
+finite values: a +inf sigma (the density head's input above ~88.7)
+becomes NaN for every sample of its ray in the reference's one-hot merge
+(0 * inf) and stays +inf here, as in the reference's argsort path
+(tests/test_torch_density_overflow.py). The reference's
 host-loop twin `render_staged_host` existed only to dodge a TPU fault; here
 it is another name of the one chunk loop, `render_staged`. The reference's
 `density_chunk` / `remat_density`, a TPU memory policy, has no counterpart

@@ -466,7 +466,7 @@ def hash_encode_interp_auto(spec: HashEncoderSpec, table, x, t, num_basis,
 # values is exact in float32, so the twins form the same products and add
 # them in float32 (in another order than the MXU: ~1 float32 ulp).
 
-TPU_CHUNK = 1 << 18                 # points whose corners of every level are held at once
+TPU_CHUNK = 1 << 18                 # points a forward twin holds at once (`_chunks`)
 
 
 def _bf16(t):

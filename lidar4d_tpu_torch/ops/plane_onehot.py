@@ -42,6 +42,7 @@ import torch
 
 from lidar4d_tpu_torch.ops import _cuda
 from lidar4d_tpu_torch.ops.grid_sample import grid_sample_2d
+from lidar4d_tpu_torch.ops.hash_onehot import _chunks
 
 _KERNEL_CHANNELS = (4, 8, 16)
 
@@ -516,15 +517,18 @@ def plane_bilinear_tpu(grid, pts):
     then times the bfloat16 y tents in float32. [P, C, H, W], [P, N, 2] ->
     [P, C, N]."""
     p, c, h, w = grid.shape
-    (x0, x1, tx0, tx1), (y0, y1, ty0, ty1) = _bilinear_taps(pts, h, w)
     flat = _bf16(grid).reshape(p, c, h * w)
+    out = torch.empty((p, c, pts.shape[1]), dtype=torch.float32, device=pts.device)
+    for s, e in _chunks(pts.shape[1]):
+        (x0, x1, tx0, tx1), (y0, y1, ty0, ty1) = _bilinear_taps(pts[:, s:e], h, w)
 
-    def row(y):
-        def at(x):
-            return torch.gather(flat, 2, (y * w + x)[:, None, :].expand(-1, c, -1))
-        return at(x0) * _bf16(tx0)[:, None] + at(x1) * _bf16(tx1)[:, None]
+        def row(y):
+            def at(x):
+                return torch.gather(flat, 2, (y * w + x)[:, None, :].expand(-1, c, -1))
+            return at(x0) * _bf16(tx0)[:, None] + at(x1) * _bf16(tx1)[:, None]
 
-    return row(y0) * _bf16(ty0)[:, None] + row(y1) * _bf16(ty1)[:, None]
+        out[:, :, s:e] = row(y0) * _bf16(ty0)[:, None] + row(y1) * _bf16(ty1)[:, None]
+    return out
 
 
 def plane_bilinear_bwd_tpu(pts, cot, hw):
@@ -556,13 +560,18 @@ def plane_linear_tpu(grid, x):
     times the bfloat16 tents, added in float32. [P, C, W], [P, N] ->
     [P, N, C]."""
     p, c, w = grid.shape
-    if tpu_linear_gathers(c, w):
-        return plane_linear_plain(grid, x)
-    s0, s1, t0, t1 = _taps(torch.clamp(x, 0.0, 1.0) * (w - 1), w)
+    gathers = tpu_linear_gathers(c, w)
     gt = _bf16(grid).transpose(1, 2)                                     # [P, W, C]
-    g0 = torch.gather(gt, 1, s0[:, :, None].expand(-1, -1, c))
-    g1 = torch.gather(gt, 1, s1[:, :, None].expand(-1, -1, c))
-    return g0 * _bf16(t0)[..., None] + g1 * _bf16(t1)[..., None]
+    out = torch.empty((p, x.shape[1], c), dtype=torch.float32, device=x.device)
+    for s, e in _chunks(x.shape[1]):
+        if gathers:
+            out[:, s:e] = plane_linear_plain(grid, x[:, s:e])
+            continue
+        s0, s1, t0, t1 = _taps(torch.clamp(x[:, s:e], 0.0, 1.0) * (w - 1), w)
+        g0 = torch.gather(gt, 1, s0[:, :, None].expand(-1, -1, c))
+        g1 = torch.gather(gt, 1, s1[:, :, None].expand(-1, -1, c))
+        out[:, s:e] = g0 * _bf16(t0)[..., None] + g1 * _bf16(t1)[..., None]
+    return out
 
 
 def plane_linear_bwd_tpu(grid, x, cot, lead=0):

@@ -43,6 +43,9 @@ record's `log_converge.txt`. `--float32-mlps`, `--plain-kernels` and
 every kernel's plain PyTorch version, or every training-path kernel's
 bfloat16 twin (the TPU kernels' numerics, chip_smoke.tpu_numerics) in its
 place: witnesses, never the main path.
+`--finite-probe` checks every train step before its update and, at the
+first non-finite one, dumps and replays it into the workspace and stops
+(`finite_probe`).
 `--report RECORD_DIR` prints a record directory's tables and checks again;
 `--report-pooled` reads every `runs/torch_*` record and prints the pooled
 reading against the JAX records (`pooled_reading`).
@@ -58,11 +61,16 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves as pytree_leaves  # noqa: E402
 
 from chip_smoke import SCENE  # noqa: E402  bench.py:71-92's scene (fov_lidar at its default)
 
@@ -523,7 +531,8 @@ def failed_lines(runs_dir=ROOT / "runs"):
         failed = (json.loads(summary.read_text()).get("failed") if summary.exists()
                   else log.exists() and "the training CLI failed" in log.read_text())
         if failed and log.exists():
-            why = [ln for ln in log.read_text().splitlines() if "[ERROR]" in ln or "Error" in ln]
+            why = [ln for ln in log.read_text().splitlines()
+                   if "[ERROR]" in ln or "Error" in ln or "NonFiniteStep" in ln]
             lines.append(f"failed: {d.name}: {(why or ['?'])[-1][:200]}")
     return lines
 
@@ -538,13 +547,260 @@ def report_pooled(runs_dir=ROOT / "runs"):
     return out
 
 
+# --------------------------------------------------------- finiteness probe
+DUMP = "nonfinite_step.pt"          # in the workspace: what replays the step
+DUMP_ADAM = "nonfinite_adam.pt"     # the Adam state before it (too large to bring back)
+REPORT = "nonfinite_report.json"
+
+
+class NonFiniteStep(RuntimeError):
+    """A train step whose loss, loss terms or gradients are not all finite."""
+
+
+def all_finite(metrics, grads):
+    """Whether the loss, its terms and every gradient leaf are finite, in one
+    reduction (one host sync)."""
+    vals = [v.reshape(-1).float() for v in metrics.values()]
+    vals += [g.reshape(-1).float() for g in grads if g is not None]
+    return bool(torch.isfinite(torch.cat(vals)).all())
+
+
+def nonfinite_names(metrics, grads, paths):
+    """The metric keys, then the gradient leaves (dotted paths), holding a
+    non-finite value."""
+    return ([k for k in sorted(metrics) if not bool(torch.isfinite(metrics[k]).all())]
+            + [p for p, g in zip(paths, grads)
+               if g is not None and not bool(torch.isfinite(g).all())])
+
+
+def step_key(step_fn):
+    """What rebuilds a TrainStep besides the field, optimizer and loss config."""
+    return {"H": step_fn.H, "W": step_fn.W, "fov_lidar": list(step_fn.fov_lidar),
+            "num_rays": step_fn.num_rays, "num_steps": step_fn.num_steps,
+            "patch_size": [step_fn.px, step_fn.py], "num_coarse": step_fn.num_coarse,
+            "num_fine": step_fn.num_fine}
+
+
+def frame_index(t, num_frames):
+    """The sequence index of a frame at time t, as the flow loss takes it."""
+    import numpy as np
+
+    return int(np.floor(np.float32(t) * np.float32(num_frames - 1) + np.float32(0.5)))
+
+
+def _on(x, device):
+    return x.detach().to(device) if isinstance(x, torch.Tensor) else x
+
+
+class FirstNonFinite(TorchDispatchMode):
+    """Records the first operator whose output holds a non-finite value:
+    its name, shape, count and the innermost frame of this repository on
+    the Python stack (none in the backward pass). Allocations and copies
+    are not checked (an allocation's memory is not yet written)."""
+
+    SKIP = ("empty", "new_empty", "set_", "detach", "view", "_to_copy", "copy_", "clone")
+
+    def __init__(self):
+        super().__init__()
+        self.first, self.ops = None, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        if self.first is not None or func.__name__.split(".")[0].startswith(self.SKIP):
+            return out
+        for t in pytree_leaves(out):
+            if not (isinstance(t, torch.Tensor) and t.is_floating_point() and t.numel()):
+                continue
+            bad = ~torch.isfinite(t)
+            if bool(bad.any()):
+                here = [f for f in traceback.extract_stack()
+                        if f.filename.startswith(str(ROOT))
+                        and not f.filename.endswith("converge_torch.py")]
+                self.first = {
+                    "op": func.__name__, "index": self.ops, "shape": list(t.shape),
+                    "nonfinite": int(bad.sum()), "nan": int(torch.isnan(t).sum()),
+                    "where": (f"{Path(here[-1].filename).relative_to(ROOT)}:{here[-1].lineno} "
+                              f"{here[-1].line}" if here else "backward pass (no Python frame)")}
+                break
+        return out
+
+
+@contextlib.contextmanager
+def step_anatomy(record):
+    """Record, along a step's render: the density head's largest input
+    (`trunc_exp`'s, overflowing float32 above ~88.7), sigma's infinite
+    entries, zero sample spacings (z_vals duplicated by the merge) and
+    non-finite compositing weights, summed over the step's renders."""
+    from lidar4d_tpu_torch.models import lidar4d, renderer
+
+    saved = lidar4d.trunc_exp, renderer._composite_weights
+    record.update(head_input_max=-math.inf, sigma_inf=0, zero_deltas=0, weights_nonfinite=0,
+                  zero_delta_inf_sigma=0)
+
+    def trunc_exp(x):
+        top, seen = float(x.detach().max()), record["head_input_max"]
+        record["head_input_max"] = top if math.isnan(top) or top > seen else seen
+        return saved[0](x)
+
+    def composite(cfg, sigma, z_vals, sample_dist):
+        w = saved[1](cfg, sigma, z_vals, sample_dist)
+        zero = torch.cat([z_vals[:, 1:] == z_vals[:, :-1],
+                          torch.zeros_like(z_vals[:, :1], dtype=torch.bool)], 1)
+        inf = torch.isinf(sigma.detach())
+        record["sigma_inf"] += int(inf.sum())
+        record["zero_deltas"] += int(zero.sum())
+        record["zero_delta_inf_sigma"] += int((zero & inf).sum())
+        record["weights_nonfinite"] += int((~torch.isfinite(w.detach())).sum())
+        return w
+
+    lidar4d.trunc_exp, renderer._composite_weights = trunc_exp, composite
+    try:
+        yield record
+    finally:
+        lidar4d.trunc_exp, renderer._composite_weights = saved
+
+
+def replay_step(step_fn, params, frame, cache, draws, step, grads_fn=None):
+    """One step's loss and gradients again on the same state (nothing is
+    updated), under `step_anatomy` and `FirstNonFinite`: a dict of the
+    metrics, the non-finite metrics and leaves, the anatomy and the first
+    non-finite operator."""
+    from lidar4d_tpu_torch.interop import tree_paths
+    from lidar4d_tpu_torch.train.train_step import TrainStep
+
+    grads_fn = grads_fn or TrainStep.grads
+    anatomy = {}
+    mode = FirstNonFinite()
+    with step_anatomy(anatomy), mode:
+        grads, metrics = grads_fn(step_fn, params, frame, cache, draws, step)
+    return {"metrics": {k: float(v) for k, v in sorted(metrics.items())},
+            "nonfinite": nonfinite_names(metrics, grads, tree_paths(params)),
+            "anatomy": anatomy, "first_nonfinite_op": mode.first, "ops": mode.ops}
+
+
+def replay_everywhere(step_fn, params, frame, cache, draws, step, grads_fn=None):
+    """`replay_step` on the step's device with the kernels, on that device
+    with every kernel's plain version (where it is a card), and on the CPU
+    (the plain versions) from the same state."""
+    import chip_smoke
+    from lidar4d_tpu_torch.interop import tree_map
+    from lidar4d_tpu_torch.train.train_step import make_train_step
+
+    out = {"device": replay_step(step_fn, params, frame, cache, draws, step, grads_fn)}
+    if step_fn.field.device.type == "cuda":
+        with chip_smoke.plain_kernels():
+            out["device plain"] = replay_step(step_fn, params, frame, cache, draws, step,
+                                              grads_fn)
+    cpu = "cpu"
+    field = type(step_fn.field)(step_fn.field.cfg, device=cpu)
+    k = step_key(step_fn)
+    cpu_step = make_train_step(field, step_fn.opt, step_fn.cfg, H=k["H"], W=k["W"],
+                               fov_lidar=k["fov_lidar"], num_rays=k["num_rays"],
+                               num_steps=k["num_steps"], patch_size=tuple(k["patch_size"]),
+                               num_coarse=k["num_coarse"], num_fine=k["num_fine"])
+    out["cpu"] = replay_step(
+        cpu_step, tree_map(lambda p: _on(p, cpu), params),
+        {n: _on(v, cpu) for n, v in frame.items()},
+        None if cache is None else {n: _on(v, cpu) for n, v in cache.items()},
+        {n: _on(v, cpu) for n, v in draws.items()}, step, grads_fn)
+    return out
+
+
+def cache_part(cache, idx):
+    """The flow cache's frames that the flow loss at frame `idx` reads (it,
+    and its neighbours at +-1 and +-2): {"frames", "valid", and each other
+    array at those frames}; `cache_whole` gives a cache of the full shapes
+    back, zero at the other frames."""
+    if cache is None:
+        return None
+    n = cache["points"].shape[0]
+    keep = sorted({min(max(idx + s, 0), n - 1) for s in (0, 1, -1, 2, -2)})
+    return {"frames": keep, **{k: _on(v if k == "valid" else v[keep], "cpu")
+                               for k, v in cache.items()}}
+
+
+def cache_whole(part):
+    """The flow cache of `cache_part`'s shapes, zero at the frames it left out."""
+    keep, valid = part["frames"], part["valid"]
+    out = {"valid": valid}
+    for k, v in part.items():
+        if k not in ("frames", "valid"):
+            out[k] = torch.zeros((valid.shape[0], *v.shape[1:]), dtype=v.dtype)
+            out[k][keep] = v
+    return out
+
+
+def dump_step(path, step_fn, state, frame, cache, draws, cli_argv, names):
+    """What replays one step: the pre-step parameters (the U-Net's aside: the
+    step never reads them), the frame, its sequence index, the flow cache's
+    frames it reads (`cache_part`), the draws, the step count and the
+    TrainStep's shape, into `path`; the Adam state beside it (DUMP_ADAM)."""
+    from lidar4d_tpu_torch.interop import tree_map
+
+    cpu = "cpu"
+    idx = frame_index(frame["time"], step_fn.cfg.num_frames)
+    params = {k: tree_map(lambda p: _on(p, cpu), v) for k, v in state.params.items()
+              if k != "unet"}
+    torch.save({"cli_argv": list(cli_argv), "step": state.step, "frame_idx": idx,
+                "frame": {k: _on(v, cpu) for k, v in frame.items()},
+                "cache": cache_part(cache, idx),
+                "draws": {k: _on(v, cpu) for k, v in draws.items()},
+                "key": step_key(step_fn), "params": params, "nonfinite": names}, path)
+    opt = state.opt_state
+    torch.save({"mu": [_on(m, cpu) for m in opt.mu], "nu": [_on(v, cpu) for v in opt.nu],
+                "count": opt.count}, Path(path).parent / DUMP_ADAM)
+
+
+@contextlib.contextmanager
+def finite_probe(ws, cli_argv):
+    """Check every train step before its update: at the first whose loss,
+    loss terms or gradients are not all finite, dump it (`dump_step`, into
+    the workspace), replay it on the card with the kernels, with the plain
+    versions, and on the CPU (`replay_everywhere`, REPORT in the workspace),
+    and raise NonFiniteStep, which ends the run."""
+    from lidar4d_tpu_torch.interop import tree_paths
+    from lidar4d_tpu_torch.train.train_step import TrainStep
+
+    call, grads_fn = TrainStep.__call__, TrainStep.grads
+    current = {}
+
+    def probed_call(self, state, frame, flow_cache, draws=None):
+        current["state"] = state        # its Adam state, for the dump
+        return call(self, state, frame, flow_cache, draws)
+
+    def probed_grads(self, params, frame, flow_cache, draws, step):
+        grads, metrics = grads_fn(self, params, frame, flow_cache, draws, step)
+        if all_finite(metrics, grads):
+            return grads, metrics
+        names = nonfinite_names(metrics, grads, tree_paths(params))
+        idx = frame_index(frame["time"], self.cfg.num_frames)
+        print(f"[PROBE] non-finite at step {step} (frame {idx}): {names}", flush=True)
+        dump_step(Path(ws) / DUMP, self, current["state"], frame, flow_cache, draws, cli_argv,
+                  names)
+        report = {"step": step, "frame_idx": idx, "nonfinite": names,
+                  "metrics": {k: float(v) for k, v in sorted(metrics.items())},
+                  "replays": replay_everywhere(self, params, frame, flow_cache, draws, step,
+                                               grads_fn)}
+        (Path(ws) / REPORT).write_text(json.dumps(report, indent=1) + "\n")
+        print("[PROBE] " + json.dumps(report), flush=True)
+        raise NonFiniteStep(f"non-finite loss or gradients at step {step}: {names}")
+
+    TrainStep.__call__, TrainStep.grads = probed_call, probed_grads
+    try:
+        yield
+    finally:
+        TrainStep.__call__, TrainStep.grads = call, grads_fn
+
+
 # --------------------------------------------------------- the child process
-def run_child(out_json, cli_argv, float32_mlps=False, plain=False, tpu=False):
+def run_child(out_json, cli_argv, float32_mlps=False, plain=False, tpu=False, probe_ws=None):
     """The training CLI in this process under chip_smoke's TrainerProbe
     (each stage timed, its kernel launches counted); writes them to
     `out_json`. `float32_mlps` runs the field's MLPs in float32, `plain`
     swaps every kernel wrapper for its plain PyTorch version on the card,
-    `tpu` every training-path wrapper for its bfloat16 twin."""
+    `tpu` every training-path wrapper for its bfloat16 twin; `probe_ws`
+    checks every step under `finite_probe`, its dump in that workspace."""
     import torch
 
     import chip_smoke
@@ -560,6 +816,8 @@ def run_child(out_json, cli_argv, float32_mlps=False, plain=False, tpu=False):
             stack.enter_context(chip_smoke.plain_kernels())
         if tpu:
             stack.enter_context(chip_smoke.tpu_numerics())
+        if probe_ws:
+            stack.enter_context(finite_probe(probe_ws, cli_argv))
         t0 = time.perf_counter()
         main_lidar4d.main(cli_argv)
         main_seconds = time.perf_counter() - t0
@@ -685,7 +943,8 @@ def simulate(rec, args, ws):
 def variant_flags(args):
     return [f for f, on in (("--float32-mlps", args.float32_mlps),
                             ("--plain-kernels", args.plain_kernels),
-                            ("--tpu-numerics", args.tpu_numerics)) if on]
+                            ("--tpu-numerics", args.tpu_numerics),
+                            ("--finite-probe", args.finite_probe)) if on]
 
 
 def run_seeds(args, seeds, extra):
@@ -701,7 +960,10 @@ def run_seeds(args, seeds, extra):
         out.mkdir(parents=True, exist_ok=True)
         cmd = [sys.executable, str(Path(__file__).resolve()), "--record", args.record,
                "--seed", str(seed), "--scene", f"{args.scene}_s{seed}",
-               "--runs-dir", args.runs_dir, *variant_flags(args), "--", *extra]
+               "--runs-dir", args.runs_dir, *variant_flags(args)]
+        if args.workspace:
+            cmd += ["--workspace", f"{args.workspace}_s{seed}"]
+        cmd += ["--", *extra]
         log = open(out / "log_converge.txt", "w")
         procs.append((seed, subprocess.Popen(cmd, cwd=ROOT, stdout=log,
                                              stderr=subprocess.STDOUT), log))
@@ -736,7 +998,7 @@ def main(argv=None):
                    help="where the record directory torch_[tpu_]<record>_s<seed> goes")
     p.add_argument("--workspace", default=None,
                    help="the CLI's workspace, kept after the run (default a temporary "
-                        "directory, removed)")
+                        "directory, removed); under --seeds each seed's is <this>_s<seed>")
     p.add_argument("--examine", action="store_true",
                    help="after a whole run, the CD anatomy at the record's first evaluation "
                         "(scripts/diag_floaters_torch.py) and the simulation CLI (66x1030 "
@@ -751,11 +1013,17 @@ def main(argv=None):
                    help="run every kernel's plain PyTorch version in its place")
     p.add_argument("--tpu-numerics", action="store_true",
                    help="run every training-path kernel's bfloat16 twin in its place")
+    p.add_argument("--finite-probe", action="store_true",
+                   help="check every train step's loss, loss terms and gradients; at the "
+                        f"first non-finite one write {DUMP} and {DUMP_ADAM} (the step's "
+                        f"state) and {REPORT} (its replays) into the workspace and stop")
     p.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     rec = RECORDS[args.record]
     if args.child:
-        run_child(args.child, extra, args.float32_mlps, args.plain_kernels, args.tpu_numerics)
+        ws = extra[extra.index("--workspace") + 1] if args.finite_probe else None
+        run_child(args.child, extra, args.float32_mlps, args.plain_kernels, args.tpu_numerics,
+                  ws)
         return 0
     if args.report_pooled:
         report_pooled()
@@ -797,7 +1065,8 @@ def main(argv=None):
     out.mkdir(parents=True, exist_ok=True)
     head = {"record": args.record, "seed": args.seed, "config": rec.config, "card": card_line,
             "float32_mlps": args.float32_mlps, "plain_kernels": args.plain_kernels,
-            "tpu_numerics": args.tpu_numerics, "cli_argv": cli_argv, "stages": []}
+            "tpu_numerics": args.tpu_numerics, "finite_probe": args.finite_probe,
+            "cli_argv": cli_argv, "stages": []}
     # until the run ends: a record that a cut run leaves keeps what it is
     (out / "converge.json").write_text(json.dumps({**head, "finished": False}, indent=1) + "\n")
     keep_at = rec.evals[0] if args.examine else None
@@ -815,9 +1084,12 @@ def main(argv=None):
     kept = copy_out(ws, out, keep_at, kept)
     if proc.returncode != 0:
         print(f"the training CLI failed: exit code {proc.returncode}", flush=True)
+        probed = ws / REPORT
         (out / "converge.json").write_text(json.dumps({
             **head, "finished": False, "failed": proc.returncode,
-            "seconds": {"CLI process": t_process}}, indent=1) + "\n")
+            "seconds": {"CLI process": t_process},
+            **({"nonfinite": json.loads(probed.read_text())} if probed.exists() else {})},
+            indent=1) + "\n")
         return 2
 
     child = json.loads(stages_json.read_text())

@@ -392,21 +392,28 @@ def test_committed_records_launch_every_kernel_a_step():
 
 def test_committed_pooled_reading():
     """The pooled reading of the committed records, as PERF.md states it:
-    five records, Z(CD) +0.048, Z(F, reversed) -1.795, three of
-    five d positive, a detectable bias of 0.0279 CD, and the phash211
-    witness delta +0.0009 with a standard error of 0.0128; the phash111
-    witness reached no epoch-54 evaluation."""
+    five records (10k URF at six seeds), Z(CD) -0.222, Z(F,
+    reversed) -0.949, three of five d positive, a detectable bias of 0.0278
+    CD; the phash211 witness delta +0.0009 with a standard error of 0.0128,
+    the phash111 witness -0.0045 with 0.0140."""
     _, out = ct.pooled_reading(ct.collect_runs(ROOT / "runs"))
     assert {n: r["n"] for n, r in out["records"].items()} == {
         "flagship_phash211": 8, "conf_phash111": 6, "conf_phash112": 4,
-        "flagship10k_phash": 4, "flagship10k_urf": 3}
-    assert out["Z_CD"] == pytest.approx(0.0476, abs=5e-4)
-    assert out["Z_F"] == pytest.approx(-1.7952, abs=5e-4)
+        "flagship10k_phash": 4, "flagship10k_urf": 6}
+    assert out["Z_CD"] == pytest.approx(-0.2222, abs=5e-4)
+    assert out["Z_F"] == pytest.approx(-0.9490, abs=5e-4)
     assert out["positive_d"] == 3
-    assert out["detectable_bias_CD"] == pytest.approx(0.0279, abs=5e-4)
+    assert out["detectable_bias_CD"] == pytest.approx(0.0278, abs=5e-4)
     assert out["reading"] == "no bias told from the seed spread"
+    urf = out["records"]["flagship10k_urf"]
+    assert urf["CD"]["z"] == pytest.approx(-1.3468, abs=5e-4)
+    assert urf["F"]["z"] == pytest.approx(-1.7769, abs=5e-4)
     w = out["witness"]
-    assert set(w) == {"flagship_phash211"}
+    assert set(w) == {"flagship_phash211", "conf_phash111"}
     assert w["flagship_phash211"]["delta"] == pytest.approx(0.0009, abs=5e-5)
     assert w["flagship_phash211"]["se"] == pytest.approx(0.0128, abs=5e-5)
     assert not w["flagship_phash211"]["moves"]
+    assert sorted(w["conf_phash111"]["twins"]) == [0, 1, 2, 3]
+    assert w["conf_phash111"]["delta"] == pytest.approx(-0.0045, abs=5e-5)
+    assert w["conf_phash111"]["se"] == pytest.approx(0.0140, abs=5e-5)
+    assert not w["conf_phash111"]["moves"]

@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(nor do chip_smoke.py, scripts/converge_torch.py and
-scripts/diag_floaters_torch.py), and chip_smoke.py refuses to report a
+(nor do chip_smoke.py, scripts/converge_torch.py,
+scripts/diag_floaters_torch.py and scripts/twin_memory.py), and chip_smoke.py refuses to report a
 result without a GPU or without the package beside it."""
 
 import ast
@@ -21,7 +21,8 @@ LAZY_ONLY = ("cv2", "imageio", "tensorboardX")   # only inside functions that wr
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "converge_torch.py",
-                                        ROOT / "scripts" / "diag_floaters_torch.py"]
+                                        ROOT / "scripts" / "diag_floaters_torch.py",
+                                        ROOT / "scripts" / "twin_memory.py"]
 
 
 def _imports(tree):

@@ -29,6 +29,17 @@ Tolerances, and why:
     sample's attributes only where its weight exceeds 1e-4, and a weight
     that float32 rounding places on the other side of that threshold adds
     or removes the sample's whole contribution. About 10x the gaps.
+  * The line-of-sight (URF) loss term: `F32_URF_TOL` (measured 6.0e-6 at
+    step / iters = 0.45, 1.7e-7 at step 0; its gradients stay within the
+    tolerances above). Both packages' `_urf_loss` agree to ~1e-7 on the
+    same inputs (`test_gradient_and_urf_losses_match_jax`); the step's z samples do
+    not: torch's `linspace` and sequential `cumsum` (sample_pdf) round
+    differently from XLA's (a reciprocal multiply; on the CPU an
+    associative scan, on the TPU a windowed sum), up to 4.2e-7 in z, and
+    the loss's band Gaussian, sigma = eps / 3 = 2.4e-3 once eps has
+    decayed, multiplies a z difference by ~d / sigma^2. With the port's
+    z_vals swapped into the JAX loss the two agree again. About 10x the
+    gap.
   * Post-step parameters: Adam's first step moves a leaf by lr * mult *
     g / (|g| + 1e-15), i.e. by lr * mult * sign(g), so a gradient entry
     whose size is within the gradient tolerance may flip sign. Post-step
@@ -111,6 +122,7 @@ BF16_FLOW_GRAD_TOL = 0.25
 F32_TOL = 3e-6
 F32_GRAD_TOL = 6e-5
 F32_ATTR_GRAD_TOL = 1e-2
+F32_URF_TOL = 6e-5
 SIGN_FLOOR = 10
 
 
@@ -464,20 +476,23 @@ def _grad_spy(opt):
     return optax.GradientTransformation(init, update)
 
 
-def _jax_step(jf, jparams, scale, cache, frame, key=7, patch=1, sampling=None):
+def _jax_step(jf, jparams, scale, cache, frame, key=7, patch=1, sampling=None, urf_step=None):
     """One JAX `make_train_step` step from `jparams` on `frame` with the
     step's own draws for `key`, at `patch` and `sampling` (the step's
-    num_steps / num_coarse / num_fine; default hierarchical COARSE + FINE).
-    Returns (metrics, gradient leaves, post-step parameter leaves), numpy."""
+    num_steps / num_coarse / num_fine; default hierarchical COARSE + FINE);
+    with `urf_step` the line-of-sight loss on, at that step count (its eps
+    decays with step / ITERS). Returns (metrics, gradient leaves, post-step
+    parameter leaves), numpy."""
     jloss = jlosses.LossConfig(flow_loss=True, grad_loss=True, scale=scale, num_frames=FRAMES,
-                               iters=ITERS)
+                               iters=ITERS, urf_loss=urf_step is not None)
     sampling = sampling or dict(num_coarse=COARSE, num_fine=FINE)
     kw = dict(H=H, W=W, fov_lidar=FOV, num_rays=RAYS, patch_size=patch, **sampling)
     spy = _grad_spy(jopt.make_optimizer(LR, ITERS, jf.param_group_labels(jparams)))
     jp = jax.tree.map(jnp.asarray, jparams)
     # one compile for the whole initial state, not one per leaf and op
     opt_state, ema = jax.jit(lambda p: (spy.init(p), jema.ema_init(p)))(jp)
-    jstate = jts.TrainState(params=jp, opt_state=opt_state, ema=ema, step=jnp.int32(0))
+    jstate = jts.TrainState(params=jp, opt_state=opt_state, ema=ema,
+                            step=jnp.int32(urf_step or 0))
     jstep = jts.make_train_step(jf, spy, jloss, **kw)
     jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, frame), jax.tree.map(jnp.asarray, cache),
                        jax.random.PRNGKey(key))
@@ -486,7 +501,8 @@ def _jax_step(jf, jparams, scale, cache, frame, key=7, patch=1, sampling=None):
             [np.asarray(p) for p in jax.tree.leaves(jstate.params)])
 
 
-def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None, jax_result=None):
+def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None, jax_result=None,
+              urf_step=None):
     """One step of each package from the same params, cache and draws (the
     JAX step's, see `_jax_step`). `jax_result`: the JAX step's result when
     it was computed elsewhere (`jax_steps`). Returns (JAX: metrics, grads,
@@ -495,19 +511,22 @@ def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None, jax_resul
     cache = scene["cache"]
     frame = scene["ds"].frame(frame_i)
     if jax_result is None:
-        jax_result = _jax_step(jf, jparams, scene["scale"], cache, frame, key, patch, sampling)
+        jax_result = _jax_step(jf, jparams, scene["scale"], cache, frame, key, patch, sampling,
+                               urf_step)
     sampling = sampling or dict(num_coarse=COARSE, num_fine=FINE)
     kw = dict(H=H, W=W, fov_lidar=FOV, num_rays=RAYS, patch_size=patch, **sampling)
 
     tstate, topt_ = tts.init_train_state(tf, lr=LR, iters=ITERS,
                                          params=interop.params_from_jax(tf, jparams))
     tloss = tlosses.LossConfig(**vars(jlosses.LossConfig(
-        flow_loss=True, grad_loss=True, scale=scene["scale"], num_frames=FRAMES, iters=ITERS)))
+        flow_loss=True, grad_loss=True, scale=scene["scale"], num_frames=FRAMES, iters=ITERS,
+        urf_loss=urf_step is not None)))
+    tstate.step = urf_step or 0
     tstep = tts.make_train_step(tf, topt_, tloss, **kw)
     tcache = tts.flow_cache_to_device(cache, "cpu")
     draws = _jax_draws(jax.random.PRNGKey(key), patch, sampling.get("num_steps", 0),
                        sampling.get("num_coarse", 0), sampling.get("num_fine", 0))
-    tgrads, tm = tstep.grads(tstate.params, frame, tcache, draws, 0)
+    tgrads, tm = tstep.grads(tstate.params, frame, tcache, draws, tstate.step)
     tstate, tm2 = tstep(tstate, frame, tcache, draws)
     for k in tm:
         assert float(tm2[k]) == float(tm[k]), k
@@ -521,14 +540,19 @@ def _run_both(scene, fields, frame_i=1, key=7, patch=1, sampling=None, jax_resul
 # compile take ~20 s a step variant on one thread, so JAX_STEP_PROCESSES
 # worker processes compute them from the module's first test on, while the
 # other tests run; each variant under its own switches, as its test sets
-# them: (float32 switches, ONEHOT_VARIANT "classic", patch, sampling).
+# them: (float32 switches, ONEHOT_VARIANT "classic", patch, sampling, the
+# step count of the line-of-sight loss or None without it). The URF cases
+# take the 10k URF schedule's two patch modes, one at step / ITERS = 0.45
+# (eps decayed as at step 4,469 of 10,000), one at step 0.
 JAX_STEPS = {
-    "bf16": (False, False, 1, None),
-    "f32": (True, False, 1, None),
-    "classic": (True, True, 1, None),
-    "patch_2x8": (True, False, (2, 8), None),
-    "uniform": (True, False, 1, dict(num_steps=COARSE + FINE)),
-    "uniform_patch_2x8": (True, False, (2, 8), dict(num_steps=COARSE + FINE)),
+    "bf16": (False, False, 1, None, None),
+    "f32": (True, False, 1, None, None),
+    "classic": (True, True, 1, None, None),
+    "patch_2x8": (True, False, (2, 8), None, None),
+    "uniform": (True, False, 1, dict(num_steps=COARSE + FINE), None),
+    "uniform_patch_2x8": (True, False, (2, 8), dict(num_steps=COARSE + FINE), None),
+    "urf_decayed": (True, False, 1, None, 45),
+    "urf_patch_2x8": (True, False, (2, 8), None, 0),
 }
 JAX_STEP_PROCESSES = 3
 JAX_STEP_TIMEOUT = 900         # s, a variant's wait for its result
@@ -538,7 +562,7 @@ def _jax_step_worker(scale, cache, frame, jparams, name):
     """In a worker process: the JAX step `name` under its switches."""
     import conftest  # noqa: F401  (the JAX CPU platform, as in the tests' process)
 
-    f32, classic, patch, sampling = JAX_STEPS[name]
+    f32, classic, patch, sampling, urf_step = JAX_STEPS[name]
     try:
         with pytest.MonkeyPatch.context() as m:
             if f32:
@@ -546,7 +570,7 @@ def _jax_step_worker(scale, cache, frame, jparams, name):
             if classic:
                 m.setattr(jho, "ONEHOT_VARIANT", "classic")
             return _jax_step(jl.LiDAR4DField(_configs(scale)[0]), jparams, scale, cache, frame,
-                             patch=patch, sampling=sampling)
+                             patch=patch, sampling=sampling, urf_step=urf_step)
     finally:
         jax.clear_caches()
 
@@ -564,15 +588,17 @@ def jax_steps(scene, fields):
         pool.shutdown(cancel_futures=True)
 
 
-def _check_step(result, jparams, labels, tol, grad_tols):
+def _check_step(result, jparams, labels, tol, grad_tols, urf=False):
     """grad_tols: gradient tolerance by top-level parameter group, with a
-    default under None."""
+    default under None; `urf`: the case asked for the line-of-sight loss
+    (its term at F32_URF_TOL, every other metric at `tol`)."""
     jm, jg, jp, tm, tg, tp = result
     assert sorted(tm) == sorted(jm)
-    assert set(tm) - {"grad_loss"} == {"chamfer_loss", "flow_loss", "lidar_loss", "loss"}
+    assert set(tm) - {"grad_loss"} == {"chamfer_loss", "flow_loss", "lidar_loss", "loss",
+                                       *(["urf_loss"] if urf else [])}
     for k in jm:
         assert np.isfinite(tm[k])
-        _close(tm[k], jm[k], tol, k)
+        _close(tm[k], jm[k], F32_URF_TOL if k == "urf_loss" else tol, k)
     p0 = jax.tree.leaves(jparams)
     groups = [path[0].key for path, _ in jax.tree_util.tree_flatten_with_path(jparams)[0]]
     live = 0
@@ -755,3 +781,26 @@ def test_train_step_other_modes_match_jax_f32(scene, fields, jax_steps, monkeypa
     _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
                 F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
                           "raydrop": F32_ATTR_GRAD_TOL})
+
+
+@pytest.mark.parametrize("mode", ["urf_decayed", "urf_patch_2x8"])
+def test_train_step_urf_matches_jax_f32(scene, fields, jax_steps, monkeypatch, mode):
+    """The line-of-sight (URF) loss on, hierarchical sampling, float32 as in
+    test_train_step_matches_jax_f32 and at its tolerances: at patch 1 with
+    eps decayed (step 45 of ITERS = 100: eps = 0.02 * 0.1 ** 0.45) and at
+    2 x 8 patches at step 0, the 10k URF schedule's two step variants. The
+    loss, every metric with urf_loss among them, every gradient leaf and
+    the post-step parameters."""
+    jf, tf, jparams = fields
+    _f32_everywhere(monkeypatch)
+    _, _, patch, _, urf_step = JAX_STEPS[mode]
+    try:
+        result = _run_both(scene, fields, patch=patch, urf_step=urf_step,
+                           jax_result=jax_steps[mode].result(JAX_STEP_TIMEOUT))
+    finally:
+        jax.clear_caches()
+    assert result[0]["urf_loss"] > 0.0
+    assert ("grad_loss" in result[0]) == (patch != 1)
+    _check_step(result, jparams, jax.tree.leaves(jf.param_group_labels(jparams)),
+                F32_TOL, {None: F32_GRAD_TOL, "intensity": F32_ATTR_GRAD_TOL,
+                          "raydrop": F32_ATTR_GRAD_TOL}, urf=True)
