@@ -135,6 +135,7 @@ launches over the classic steps. The last line is {"ok": true, "device":
 nothing of JAX.
 """
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -2257,21 +2258,28 @@ COORD_ARG = {"hash_grid_bwd": 1, "plane_bilinear_bwd": 0, "plane_bilinear_vjp": 
 
 
 def recorded_cases(field, calls):
-    """(check_case case, exact) of each recorded kernel call, on its own
-    arguments: the kernel against its plain version, a backward kernel
+    """(check_case case, exact, route) of each recorded kernel call, on its
+    own arguments: the kernel against its plain version, a backward kernel
     against its plain version with tables and cotangents in float64 (exact;
     the coordinates stay float32, so that every point keeps the kernel's
     cell, and with it a coordinate gradient that is a slope of that cell);
     bytes = every input read once and every output written once (with the
-    hash kernels' level table)."""
+    hash kernels' level table); route = the route the call's launch plan
+    took, by the wrapper's route counter (None where the kernel has one
+    route). The kernel is looked up at each call, so that a caller may swap
+    it for another build."""
+    from lidar4d_tpu_torch.ops import _cuda
     from lidar4d_tpu_torch.ops import hash_onehot as ho
 
     names = encoder_names(field)
     for name, args, kwargs in calls:
         mod = kernel_module(name)
-        run = functools.partial(getattr(mod, name), *args, **kwargs)
+        run = functools.partial(lambda m, k, *a, **kw: getattr(m, k)(*a, **kw), mod, name,
+                                *args, **kwargs)
         plain = functools.partial(getattr(mod, PLAIN_VERSIONS[name]), *args, **kwargs)
+        before = collections.Counter(_cuda.ROUTE_LAUNCHES)
         outs = run()
+        routes = [r for (k, r) in _cuda.ROUTE_LAUNCHES - before if k == name]
         outs = outs if isinstance(outs, tuple) else (outs,)
         tensors = [a for a in (*args, *kwargs.values()) if torch.is_tensor(a)]
         if name.startswith("hash_"):
@@ -2286,7 +2294,7 @@ def recorded_cases(field, calls):
             wide = [a.double() if torch.is_tensor(a) and a.is_floating_point()
                     and i != COORD_ARG[name] else a for i, a in enumerate(args)]
             exact = functools.partial(getattr(mod, PLAIN_VERSIONS[name]), *wide, **kwargs)
-        yield case, exact
+        yield case, exact, routes[0] if len(routes) == 1 else None
 
 
 def per_density_call(field):
@@ -2295,12 +2303,10 @@ def per_density_call(field):
             for k, v in launches_per_step(field, density_calls=1).items()}
 
 
-def check_reference_kernels(field, signal_t, ds, cache, opt, dev):
+def record_reference_step(field, signal_t, ds, cache, opt, dev):
     """One reference step (TRAIN_RAYS rays, opt's uniform samples, the flow
-    loss) on O(0.1-1) parameters with every kernel call and every hash-encode
-    route recorded; then each recorded call, forward and backward, held
-    against its plain version on its own inputs and timed beside its bound.
-    Returns (routes by encoder, the calls' rows, the per-kernel sums)."""
+    loss) on O(0.1-1) parameters with every kernel call and every
+    hash-encode route recorded. Returns (calls, routes)."""
     from lidar4d_tpu_torch.train.losses import LossConfig
     from lidar4d_tpu_torch.train.train_step import (
         flow_cache_to_device, init_train_state, make_train_step)
@@ -2314,7 +2320,27 @@ def check_reference_kernels(field, signal_t, ds, cache, opt, dev):
     calls, routes = [], []
     with recording_kernel_calls(calls), spying_encode_routes(routes):
         step.grads(state.params, ds.frame(0), flow_cache_to_device(cache, dev), step.draw(), 0)
-    del state
+    return calls, routes
+
+
+# The routes the reference's largest tables take (ops/hash_onehot.py's
+# launch plans), by kernel and encoder: the forward's tile path (the gather
+# path below its fewest points) for tables over the L2, with its resident
+# floor; the xy planes' tile path; the backward's vector route.
+REFERENCE_ROUTES = {"hash_grid_fwd": {"static hash": ("tile over L2",),
+                                      "flow grid": ("tile over L2", "gather over L2"),
+                                      "dynamic hash xy": ("tile",)},
+                    "hash_grid_bwd": {"static hash": ("vector",), "flow grid": ("vector",),
+                                      "dynamic hash xy": ("vector",)}}
+
+
+def check_reference_kernels(field, signal_t, ds, cache, opt, dev):
+    """One reference step (`record_reference_step`); then each recorded
+    call, forward and backward, held against its plain version on its own
+    inputs and timed beside its bound, every static hash, flow grid and xy
+    call held to its route in REFERENCE_ROUTES. Returns (routes by encoder,
+    the calls' rows, the per-kernel sums)."""
+    calls, routes = record_reference_step(field, signal_t, ds, cache, opt, dev)
     names, basis = encoder_names(field), field.hash_encoder.num_basis
     by_encoder = {}
     for route, spec in routes:
@@ -2334,12 +2360,23 @@ def check_reference_kernels(field, signal_t, ds, cache, opt, dev):
     if any(route.startswith(("factorized", "folded, variants")) for route, _ in routes):
         raise AssertionError("a reference encoder took a flagship route: "
                              + json.dumps(by_encoder))
-    summary, rows = {}, []
+    summary, rows, wrong = {}, [], []
     with torch.no_grad():
-        for case, exact in recorded_cases(field, calls):
-            rows.append(check_case(case, summary, True, 5, 1, exact))
+        for (name, args, _), (case, exact, route) in zip(calls, recorded_cases(field, calls)):
+            row = check_case(case, summary, True, 5, 1, exact)
+            enc = names.get(args[0]) if name.startswith("hash_") else None
+            want_route = REFERENCE_ROUTES.get(name, {}).get(enc)
+            row["route"] = route
+            if route is not None:
+                print(f"    route {route}" + (f" (must be {' or '.join(want_route)})"
+                                              if want_route else ""), flush=True)
+            if want_route is not None and route not in want_route:
+                wrong.append(f"{case[1]}: route {route}, must be {' or '.join(want_route)}")
+            rows.append(row)
     del calls
     torch.cuda.empty_cache()
+    if wrong:
+        raise AssertionError("reference calls off their routes: " + "; ".join(wrong))
     return by_encoder, rows, finish(summary)
 
 

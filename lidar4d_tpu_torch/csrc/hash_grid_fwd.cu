@@ -50,6 +50,23 @@
 //   stores already (the hashed static plane, L = 1, F = 8).
 // Both paths load a level's 2^D corner rows before summing them, in corner
 // order, so the sums are those of the first design.
+//
+// Tables over the L2 (the reference configuration's static hash, 67 MB, and
+// flow grid, 60 MB; ops/hash_onehot.py::tables_over_l2) are bound by the
+// L2's rate of sector requests: 786,432 points x 8 levels x 8 corners, a
+// 32-byte sector each, ~50 M requests a reference step's call, which the
+// static hash's 0.326 ms serves at ~150 G a second. They take the tile path
+// through L1 with at least 512 threads an SM resident: the flow grid's
+// 272-byte output rows made a 70 KB tile a 256-point block, and beside
+// 96 KB of L1 one block an SM kept too few gathers in flight (0.576 ms a
+// step's call, 2.210 a 3,145,728-point render call; two blocks: 0.385 and
+// 1.516, NVIDIA H100 80GB HBM3 at 700 W, scripts/kernels_bench.py). A
+// level-major route (a grid of point blocks x level groups, so that the
+// blocks in flight gather from one level's slice while it stays in the L2)
+// was built and timed against them: 0.431 ms static, 0.507 flow. It cuts
+// device-memory traffic, which is not their bound, and runs one level after
+// another where the tile path overlaps the coarse levels' L1 hits with the
+// fine levels' L2 requests; it is not kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -9,10 +9,13 @@ first use into `lidar4d_tpu_torch/_build/` and loaded with `ctypes`: every
 pointer and the stream are passed as `c_void_p`, the stream being PyTorch's
 current one, and each C entry returns `cudaGetLastError()` after its launch.
 
-`LAUNCHES` counts the launches of each kernel; `launch` is the only place
-that adds to it, right where the kernel is launched.
+`LAUNCHES` counts the launches of each kernel and `ROUTE_LAUNCHES` those of
+each (kernel, route) where a wrapper names the route its launch plan took;
+`launch` is the only place that adds to them, right where the kernel is
+launched.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -44,8 +47,8 @@ _SIGNATURES = {
     # grid, x, out, n_planes, n, channels, width, stream
     "plane_linear_fwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, cot, levels, dtab, n_variants, n, n_levels, n_dims, n_features, rows,
-    # run, smem_floats, stream
-    "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P),
+    # run, smem_floats, route, stream
+    "hash_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _P),
     # pts, cot, dgrid, n_planes, n, channels, height, width, slice, run, stride,
     # stream
     "plane_bilinear_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -59,19 +62,21 @@ _SIGNATURES = {
 
 # Occupancy queries of the persistent kernels (resident blocks per SM; no
 # launch): hash_grid_fwd (n_dims, n_levels, n_features, table_floats,
-# threads, tile, carveout), hash_grid_bwd (n_dims, n_features, smem_floats),
+# threads, tile, carveout), hash_grid_bwd (n_dims, n_features, smem_floats,
+# route),
 # plane_bilinear_bwd (channels, slice, height, width, stride),
 # plane_linear_bwd (channels, width, copy) and plane_bilinear_vjp (channels,
 # mode, height, width, threads, stride, carveout).
 _QUERIES = {
     "hash_grid_fwd_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),
-    "hash_grid_bwd_blocks_per_sm": (_I, _I, _I),
+    "hash_grid_bwd_blocks_per_sm": (_I, _I, _I, _I),
     "plane_bilinear_bwd_blocks_per_sm": (_I, _I, _I, _I, _I),
     "plane_linear_bwd_blocks_per_sm": (_I, _I, _I),
     "plane_bilinear_vjp_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+ROUTE_LAUNCHES = collections.Counter()
 
 _lib = None
 
@@ -79,6 +84,7 @@ _lib = None
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def library_path() -> Path:
@@ -152,14 +158,17 @@ def aligned(t, nbytes=16):
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
-def launch(name, device, *args):
-    """Launch kernel `name` on `device`'s current stream; raise on a refusal."""
+def launch(name, device, *args, route=None):
+    """Launch kernel `name` on `device`'s current stream (by the launch
+    plan's `route`, where the wrapper names one); raise on a refusal."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(library(), f"lidar4d_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[name, route] += 1
 
 
 def persistent_run(n, groups, n_grids, min_run, sms, blocks_per_sm, waves=1):
@@ -187,6 +196,12 @@ def blocks_per_sm(query, *args):
 @lru_cache(maxsize=None)
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@lru_cache(maxsize=None)
+def l2_bytes(device) -> int:
+    """The card's L2 cache in bytes (the H100's: 50 MiB)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def resolve_device(device) -> torch.device:

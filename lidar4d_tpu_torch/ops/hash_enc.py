@@ -22,7 +22,7 @@ gradient.
 """
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cached_property, lru_cache
 
 import numpy as np
 import torch
@@ -33,7 +33,9 @@ _PRIMES = (1, 2654435761, 805459861)
 
 @dataclass(frozen=True)
 class HashEncoderSpec:
-    """Static configuration of a multiresolution hash encoder."""
+    """Static configuration of a multiresolution hash encoder. The derived
+    sizes are computed once an instance (every kernel wrapper reads them at
+    each call)."""
 
     n_dims: int = 3
     n_levels: int = 8
@@ -42,7 +44,7 @@ class HashEncoderSpec:
     base_resolution: int = 512
     max_resolution: int = 32768
 
-    @property
+    @cached_property
     def per_level_scale(self) -> float:
         if self.n_levels == 1:
             return 1.0
@@ -50,14 +52,14 @@ class HashEncoderSpec:
             np.exp2(np.log2(self.max_resolution / self.base_resolution) / (self.n_levels - 1))
         )
 
-    @property
+    @cached_property
     def resolutions(self):
         s = self.per_level_scale
         return tuple(
             int(np.round(self.base_resolution * (s ** l))) for l in range(self.n_levels)
         )
 
-    @property
+    @cached_property
     def table_sizes(self):
         """Rows per level: dense size if the vertex grid fits, else 2^log2."""
         cap = 1 << self.log2_hashmap_size
@@ -67,7 +69,7 @@ class HashEncoderSpec:
             sizes.append(dense if dense <= cap else cap)
         return tuple(sizes)
 
-    @property
+    @cached_property
     def level_offsets(self):
         offs, acc = [], 0
         for s in self.table_sizes:
@@ -75,7 +77,7 @@ class HashEncoderSpec:
             acc += s
         return tuple(offs)
 
-    @property
+    @cached_property
     def n_rows(self) -> int:
         return sum(self.table_sizes)
 

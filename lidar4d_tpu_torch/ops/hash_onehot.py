@@ -103,6 +103,19 @@ def hash_grid_fwd_plain(spec: HashEncoderSpec, tables, xs):
     return torch.stack([hash_encode(spec, t, x) for t, x in zip(tables, xs)])
 
 
+# The share of the card's L2 a call's tables (V x rows x F floats) must
+# exceed for the kernels' plans for tables over the L2.
+HASH_L2_SHARE = 0.5
+
+
+def tables_over_l2(spec: HashEncoderSpec, n_tables, l2_bytes):
+    """Whether a call's n_tables = V tables of `spec` exceed HASH_L2_SHARE
+    of a card's `l2_bytes` of L2 (the H100's 50 MiB): then the finer levels'
+    rows, and their gradient's, come from the L2 and device memory, not
+    from L1."""
+    return n_tables * spec.n_rows * spec.n_features * 4 > HASH_L2_SHARE * l2_bytes
+
+
 # The launch of `hash_grid_fwd` (csrc/hash_grid_fwd.cu): points a tile on
 # the tile path and on the gather path (one a thread; the kernel's
 # kMaxThreads at most), the shared memory a block may take (its kSmemLimit,
@@ -110,7 +123,9 @@ def hash_grid_fwd_plain(spec: HashEncoderSpec, tables, xs):
 # path, the SM's unified L1 / shared memory and the L1 a tile launch that
 # gathers through L1 keeps, whether tables may be staged and tiles used at
 # all (the variants PERF.md times), and the fewest tiles a staging block
-# takes (a persistent grid fills one resident wave).
+# takes (a persistent grid fills one resident wave). Tables over the L2
+# (`tables_over_l2`): the threads an SM the tile path keeps resident at
+# least.
 HASH_FWD_THREADS = 256
 HASH_FWD_GATHER_THREADS = 128
 HASH_FWD_MAX_THREADS = 512
@@ -122,6 +137,7 @@ HASH_FWD_L1_KEEP = 96 * 1024
 HASH_FWD_STAGE = True
 HASH_FWD_TILE = True
 HASH_FWD_MIN_RUN = 2
+HASH_FWD_L2_RESIDENT = 512
 
 
 class FwdLaunch(NamedTuple):
@@ -135,6 +151,13 @@ class FwdLaunch(NamedTuple):
     tile: bool
     carveout: int
     min_run: Optional[int]
+
+    @property
+    def route(self):
+        """The path as the route counters name it: staged, tile or gather."""
+        if self.table_floats:
+            return "staged"
+        return "tile" if self.tile else "gather"
 
 
 def hash_fwd_tile_pitch(levels, features):
@@ -151,9 +174,10 @@ def hash_fwd_table_floats(spec: HashEncoderSpec):
     return sum(-(-r * spec.n_features // 4) * 4 for r in spec.table_sizes)
 
 
-def hash_fwd_launch(spec: HashEncoderSpec, n_points):
+def hash_fwd_launch(spec: HashEncoderSpec, n_points, over_l2=False):
     """The `FwdLaunch` of `hash_grid_fwd` for a call on n_points = N x V
-    points of `spec`.
+    points of `spec`, whose tables are over the L2 where `over_l2`
+    (`tables_over_l2`).
 
     The gather path, the earlier design's launch (rows through L1, each
     thread storing its own point's outputs, HASH_FWD_GATHER_THREADS points a
@@ -167,7 +191,11 @@ def hash_fwd_launch(spec: HashEncoderSpec, n_points):
     (bulk copies, all of the SM's fast memory shared, at least
     HASH_FWD_MIN_RUN tiles a block of a persistent grid), else with rows
     gathered through L1 and a shared-memory share that leaves
-    HASH_FWD_L1_KEEP bytes of L1 (at least one block's)."""
+    HASH_FWD_L1_KEEP bytes of L1 (at least one block's). Tables over the L2
+    keep at least HASH_FWD_L2_RESIDENT threads an SM resident instead, as
+    far as their tiles fit: their gathers wait on the L2 and device memory,
+    and a wide output tile (the flow grid's 272 bytes a point) would leave
+    one block an SM."""
     f = spec.n_features
     one_sector = f % 4 == 0 and spec.n_output_dims <= 8
     if n_points < HASH_FWD_MIN_POINTS or one_sector or not HASH_FWD_TILE:
@@ -178,8 +206,21 @@ def hash_fwd_launch(spec: HashEncoderSpec, n_points):
         return FwdLaunch(table, HASH_FWD_THREADS, True, 100, HASH_FWD_MIN_RUN)
     block = tile_floats * 4 + HASH_FWD_BLOCK_RESERVE
     blocks = max(1, (HASH_FWD_SM_SMEM - HASH_FWD_L1_KEEP) // block)
+    if over_l2:
+        resident = -(-HASH_FWD_L2_RESIDENT // HASH_FWD_THREADS)
+        blocks = max(blocks, min(resident, HASH_FWD_SM_SMEM // block))
     carveout = min(100, -(-100 * blocks * block // HASH_FWD_SM_SMEM))
     return FwdLaunch(0, HASH_FWD_THREADS, True, carveout, 1)
+
+
+def hash_fwd_plan(spec: HashEncoderSpec, n_points, n_tables, l2_bytes):
+    """(FwdLaunch, route) of a `hash_grid_fwd` call on n_points = N x V
+    points through n_tables = V tables of `spec` on a card with `l2_bytes`
+    of L2; the route is the plan's, with " over L2" where the tables are
+    (`tables_over_l2`)."""
+    over_l2 = tables_over_l2(spec, n_tables, l2_bytes)
+    plan = hash_fwd_launch(spec, n_points, over_l2)
+    return plan, plan.route + (" over L2" if over_l2 else "")
 
 
 def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
@@ -208,7 +249,7 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     if n == 0:
         return out
     levels = _level_table(spec, xs.device)
-    plan = hash_fwd_launch(spec, n * v)
+    plan, route = hash_fwd_plan(spec, n * v, v, _cuda.l2_bytes(xs.device))
     run = 1
     if plan.min_run is not None:
         bps = _cuda.blocks_per_sm("hash_grid_fwd_blocks_per_sm", spec.n_dims, spec.n_levels,
@@ -219,7 +260,7 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
     _cuda.launch("hash_grid_fwd", xs.device, xs.data_ptr(), tables.data_ptr(),
                  levels.data_ptr(), out.data_ptr(), v, n, spec.n_levels, spec.n_dims,
                  spec.n_features, spec.n_rows, plan.table_floats, plan.threads, int(plan.tile),
-                 plan.carveout, run)
+                 plan.carveout, run, route=route)
     return out
 
 
@@ -227,11 +268,36 @@ def hash_grid_fwd(spec: HashEncoderSpec, tables, xs):
 # block (the kernel's kThreads), the fewest consecutive points a group of F
 # lanes takes, the resident waves the grid fills (2 ran 3% faster than 1 on
 # the H100, see PERF.md), and the largest level slice rows_l * F it
-# accumulates in shared memory (64 KB).
+# accumulates in shared memory (64 KB). A spec none of whose levels fits
+# adds to global memory: by the vector route where F = 4 or 8 and the
+# cotangent and gradient are 16-byte aligned (HASH_BWD_VECTOR), and level
+# by level where the gradient is over the L2 (HASH_BWD_LEVEL_MAJOR). The
+# kernel's route numbers.
 HASH_BWD_THREADS = 512
 HASH_BWD_MIN_RUN = 4
 HASH_BWD_WAVES = 2
 HASH_BWD_SMEM_FLOATS = 16384
+HASH_BWD_VECTOR = True
+HASH_BWD_LEVEL_MAJOR = True
+HASH_BWD_ROUTES = {"lanes": 0, "vector": 1}
+
+
+class BwdLaunch(NamedTuple):
+    """One launch of `hash_grid_bwd`: the shared-memory accumulator's floats
+    (0: every level adds to global memory), the route (a HASH_BWD_ROUTES
+    key), and the grids over which `persistent_run` spreads HASH_BWD_WAVES
+    resident waves (levels x variants; variants alone when level-major)."""
+    smem_floats: int
+    route: str
+    grids: int
+
+    @property
+    def label(self):
+        """The route as the route counters name it: shared, global or
+        vector."""
+        if self.route == "vector":
+            return "vector"
+        return "shared" if self.smem_floats else "global"
 
 
 def _smem_floats(spec: HashEncoderSpec):
@@ -241,6 +307,32 @@ def _smem_floats(spec: HashEncoderSpec):
     fits = [r * spec.n_features for r in spec.table_sizes
             if r * spec.n_features <= HASH_BWD_SMEM_FLOATS]
     return max(fits, default=0)
+
+
+def hash_bwd_launch(spec: HashEncoderSpec, n_variants, l2_bytes, cot_ptr=0, dtab_ptr=0):
+    """The `BwdLaunch` of `hash_grid_bwd` for V = n_variants point sets of
+    `spec` on a card with `l2_bytes` of L2, whose cotangent and gradient
+    start at cot_ptr and dtab_ptr.
+
+    A spec with a level in the shared accumulator takes the lane route
+    (lane f of a group of F adds feature f) over HASH_BWD_WAVES waves of all
+    levels and variants at once. A spec with none adds every level to global
+    memory, where the L2 performs the reductions at a rate of reductions,
+    not of bytes: by the vector route (one 16-byte reduction a 4-feature
+    chunk of a row, so F = 4 or 8 and 16-byte aligned rows: every level's
+    offset x F x 4 bytes is a multiple of 16 then, and the wrapper makes the
+    cotangent aligned), else by the lane route. Where the gradient is over
+    the L2 (`tables_over_l2`) it goes level-major: HASH_BWD_WAVES waves for
+    each level, so that the blocks in flight add to one level's slice (8 MB
+    at the reference widths) while it stays in the L2."""
+    smem = _smem_floats(spec)
+    if smem:
+        return BwdLaunch(smem, "lanes", spec.n_levels * n_variants)
+    vector = (HASH_BWD_VECTOR and spec.n_features % 4 == 0
+              and cot_ptr % 16 == 0 and dtab_ptr % 16 == 0)
+    level_major = HASH_BWD_LEVEL_MAJOR and tables_over_l2(spec, n_variants, l2_bytes)
+    grids = n_variants if level_major else spec.n_levels * n_variants
+    return BwdLaunch(0, "vector" if vector else "lanes", grids)
 
 
 def hash_grid_bwd_plain(spec: HashEncoderSpec, xs, cot, n_tables=None):
@@ -286,15 +378,16 @@ def hash_grid_bwd(spec: HashEncoderSpec, xs, cot, n_tables=None):
     if n == 0:
         return dtab
     levels = _level_table(spec, xs.device)
-    smem = _smem_floats(spec)
+    cot = _cuda.aligned(cot)
+    plan = hash_bwd_launch(spec, v, _cuda.l2_bytes(xs.device), cot.data_ptr(), dtab.data_ptr())
+    route = HASH_BWD_ROUTES[plan.route]
     bps = _cuda.blocks_per_sm("hash_grid_bwd_blocks_per_sm", spec.n_dims, spec.n_features,
-                              smem)
-    run = _cuda.persistent_run(n, HASH_BWD_THREADS // spec.n_features, spec.n_levels * v,
-                               HASH_BWD_MIN_RUN, _cuda.sm_count(xs.device), bps,
-                               HASH_BWD_WAVES)
+                              plan.smem_floats, route)
+    run = _cuda.persistent_run(n, HASH_BWD_THREADS // spec.n_features, plan.grids,
+                               HASH_BWD_MIN_RUN, _cuda.sm_count(xs.device), bps, HASH_BWD_WAVES)
     _cuda.launch("hash_grid_bwd", xs.device, xs.data_ptr(), cot.data_ptr(),
                  levels.data_ptr(), dtab.data_ptr(), v, n, spec.n_levels, spec.n_dims,
-                 spec.n_features, spec.n_rows, run, smem)
+                 spec.n_features, spec.n_rows, run, plan.smem_floats, route, route=plan.label)
     return dtab
 
 

@@ -456,30 +456,62 @@ def test_hash_grid_fwd_edges(dev, spec, n):
 
 
 # The reference configuration's hash specs (configs/kitti360_4950.txt at the
-# CLI defaults) at a reference step's call sizes, forward and backward: the
-# static hash (8 levels of 2^19 rows, no level slice small enough for the
-# backward's shared-memory accumulator) and the xy dynamic planes (2^15
-# rows, classic at F = 4) on 1,024 rays x 768 samples, the flow grid (F = 8,
-# 2^18 rows a level) on a whole 66 x 1030 cloud of the flow loss, and the
-# xz / yz dynamic planes folded to F' = 1 (2^13 rows).
-@pytest.mark.parametrize("spec,n", [
-    (HashEncoderSpec(3, 8, 4, 19, 512, 32768), 1024 * 768),
-    (HashEncoderSpec(2, 8, 4, 15, 512, 32768), 1024 * 768),
-    (HashEncoderSpec(3, 8, 8, 18, 32, 8192), 66 * 1030),
-    (HashEncoderSpec(2, 8, 1, 13, 512, 32768), 1024 * 768),
-], ids=str)
-def test_reference_specs_match_plain(dev, spec, n):
-    pts = _ray_points(dev, -(-n // 768), 768, seed=70)[:n]
-    xs = pts[:, :spec.n_dims][None].contiguous()
-    tables = _rand(dev, 1, spec.n_rows, spec.n_features, lo=-1, hi=1, seed=71)
-    before = dict(_cuda.LAUNCHES)
+# CLI defaults) at a reference step's call sizes, forward and backward, on
+# the routes the launch plans give them: the static hash (8 levels of 2^19
+# rows, F = 4, 67 MB) and the flow grid (F = 8, 2^18 rows a level, 60 MB)
+# on the forward's tile path for tables over the L2 and the backward's
+# vector route, the xy dynamic planes (2^15 rows, F = 4, 4.2 MB) on the tile
+# and vector routes, the xz / yz planes folded to F' = 1 (2^13 rows) on the
+# tile route and the shared accumulator; the static hash also at the
+# render's 3,145,728-point call, ragged N, N = 1 and three tables; F = 1 and
+# 2 tables over half the L2 (the backward's scalar reductions, level-major)
+# and F = 8 in 2D at 2^16 rows. The first points of each variant sit on 0,
+# on 1 and just outside; the rest are ray-ordered. The forward within RTOL of
+# the plain version, the backward within GRAD_RTOL of the plain version with
+# tables and cotangents in float64.
+_REF_STATIC = HashEncoderSpec(3, 8, 4, 19, 512, 32768)
+_REF_FLOW = HashEncoderSpec(3, 8, 8, 18, 32, 8192)
+_REF_XY = HashEncoderSpec(2, 8, 4, 15, 512, 32768)
+_REF_FOLDED = HashEncoderSpec(2, 8, 1, 13, 512, 32768)
+_EDGES = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-1e-6, 0.5, 1.0 + 1e-6], [1.0 + 1e-6, -1e-6, 0.0],
+          [0.5, 1.0, 0.0], [1.0 - 1e-7, 1e-7, 0.5]]
+
+
+@pytest.mark.parametrize("spec,n,v,fwd,bwd", [
+    (_REF_STATIC, 1024 * 768, 1, "tile over L2", "vector"),
+    (_REF_STATIC, 4096 * 768, 1, "tile over L2", "vector"),
+    (_REF_STATIC, 1024 * 768 - 5, 3, "tile over L2", "vector"),
+    (_REF_STATIC, 1, 1, "gather over L2", "vector"),
+    (_REF_XY, 1024 * 768, 1, "tile", "vector"),
+    (_REF_XY, 1, 3, "gather", "vector"),
+    (_REF_FLOW, 1024 * 768, 1, "tile over L2", "vector"),
+    (_REF_FLOW, 66 * 1030, 1, "tile over L2", "vector"),
+    (_REF_FLOW, 7_168 + 3, 3, "gather over L2", "vector"),
+    (_REF_FOLDED, 1024 * 768, 1, "tile", "shared"),
+    (HashEncoderSpec(3, 8, 1, 20, 512, 32768), 100_003, 1, "tile over L2", "global"),
+    (HashEncoderSpec(2, 8, 2, 19, 512, 32768), 100_003, 3, "tile over L2", "global"),
+    (HashEncoderSpec(2, 8, 8, 16, 64, 4096), 100_003, 1, "tile", "vector"),
+], ids=lambda v: v if isinstance(v, (str, int)) else str(v))
+def test_reference_specs_match_plain(dev, spec, n, v, fwd, bwd):
+    d = spec.n_dims
+    pts = _ray_points(dev, -(-n * v // 768), 768, seed=70)[:n * v].reshape(v, n, 3)
+    edges = torch.tensor(_EDGES, device=dev)[:n]
+    pts[:, :edges.shape[0]] = edges
+    xs = pts[..., :d].contiguous()
+    tables = _rand(dev, v, spec.n_rows, spec.n_features, lo=-1, hi=1, seed=71)
+    assert ho.hash_fwd_plan(spec, n * v, v, _cuda.l2_bytes(dev))[1] == fwd
+    before, routes = dict(_cuda.LAUNCHES), _cuda.ROUTE_LAUNCHES.copy()
     got = ho.hash_grid_fwd(spec, tables, xs)
     assert _cuda.LAUNCHES["hash_grid_fwd"] == before["hash_grid_fwd"] + 1
+    assert _cuda.ROUTE_LAUNCHES - routes == {("hash_grid_fwd", fwd): 1}
     assert _rel(got, ho.hash_grid_fwd_plain(spec, tables, xs)) <= RTOL
-    cot = _rand(dev, 1, n, spec.n_output_dims, lo=-1, hi=1, seed=72)
+    del got
+    cot = _rand(dev, v, n, spec.n_output_dims, lo=-1, hi=1, seed=72)
+    routes = _cuda.ROUTE_LAUNCHES.copy()
     got = ho.hash_grid_bwd(spec, xs, cot)
     assert _cuda.LAUNCHES["hash_grid_bwd"] == before["hash_grid_bwd"] + 1
-    assert _rel(got, ho.hash_grid_bwd_plain(spec, xs, cot)) <= GRAD_RTOL
+    assert _cuda.ROUTE_LAUNCHES - routes == {("hash_grid_bwd", bwd): 1}
+    assert _rel(got, ho.hash_grid_bwd_plain(spec, xs, cot.double())) <= GRAD_RTOL
 
 
 # The redesigned plane_bilinear_vjp: the flagship time planes [3, 8, 8, S]
